@@ -1,0 +1,16 @@
+"""metadrive_ped_torch — the PyTorch/CUDA port of metadrive_ped_tpu.
+
+Same design as the JAX package: all per-object state lives in dataclasses
+of tensors batched over an env axis ``[E, ...]`` on one device, and one
+``step`` advances every environment in lockstep. Maps are compiled on the
+host (numpy) into fixed-size scene packs. The detector clouds run on a
+hand-written CUDA kernel (csrc/ray_segment.cu) on the GPU.
+
+    >>> from metadrive_ped_torch import MetaDriveEnv
+    >>> env = MetaDriveEnv(dict(num_envs=1024, map="SCS"), device="cuda")
+    >>> obs, info = env.reset(seed=0)
+    >>> obs, reward, terminated, truncated, info = env.step(actions)
+"""
+from metadrive_ped_torch.envs.metadrive_env import MetaDriveEnv
+
+__all__ = ["MetaDriveEnv"]

@@ -1,0 +1,117 @@
+"""Counter-based random keys: a bit-exact twin of the `jax.random` calls the
+env makes (`PRNGKey`, `split`, `fold_in`, `uniform`, `randint`).
+
+The twin follows JAX's default configuration since 0.5 (checked against
+jax 0.9.0): `jax_default_prng_impl=threefry2x32` and
+`jax_threefry_partitionable=True`. Under the partitionable scheme every
+draw hashes a counter with the key:
+
+- ``split(key, n)[i]`` and ``fold_in(key, i)`` are both
+  ``threefry2x32(key, (0, i))``;
+- 32 random bits at flat position ``i`` of a shape are ``b0 ^ b1`` of
+  ``threefry2x32(key, (0, i))``.
+
+A key is a tensor ``[..., 2]`` of int64 holding two uint32 words (torch has
+no full uint32 arithmetic); every function takes a batch of keys and
+broadcasts over its leading axes, so a batch of keys stands for JAX's
+`vmap` over keys. Arithmetic is int64 masked to 32 bits, so results are
+the same on any device.
+"""
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of counters (x0, x1) under key
+    (k0, k1); all int64 tensors of 32-bit values, broadcast together."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def prng_key(seed, device=None):
+    """`jax.random.PRNGKey(seed)` for a seed in int32 range: [0, seed]."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64, device=device)
+
+
+def _hash_counters(key, n):
+    """threefry2x32(key, (0, i)) for i < n: two [..., n] tensors."""
+    k0, k1 = key[..., 0:1], key[..., 1:2]
+    return threefry2x32(k0, k1, torch.zeros((), dtype=torch.int64, device=key.device),
+                        torch.arange(n, dtype=torch.int64, device=key.device))
+
+
+def split(key, num=2):
+    """`jax.random.split`: keys [..., 2] -> [..., num, 2]."""
+    b0, b1 = _hash_counters(key, num)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def fold_in(key, data):
+    """`jax.random.fold_in` with a Python int ``data``: [..., 2] -> [..., 2]."""
+    k0, k1 = key[..., 0], key[..., 1]
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(k0, k1, zero, zero + (int(data) & _M32))
+    return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(key, n):
+    """32 random bits at each of n flat positions: [..., 2] -> [..., n]."""
+    b0, b1 = _hash_counters(key, n)
+    return b0 ^ b1
+
+
+def uniform(key, shape):
+    """`jax.random.uniform(key, shape)` in float32 over [0, 1):
+    [..., 2] -> [..., *shape]."""
+    shape = tuple(shape)
+    n = 1
+    for d in shape:
+        n *= d
+    bits = random_bits(key, n)
+    # the 23 high bits become the mantissa of a float in [1, 2)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp(floats, min=0.0).reshape(key.shape[:-1] + shape)
+
+
+def randint(key, shape, minval, maxval):
+    """`jax.random.randint(key, shape, minval, maxval)` (int32 result).
+
+    ``minval``/``maxval`` are ints or int tensors broadcast against the key
+    batch (one bound per key, as under `vmap`)."""
+    shape = tuple(shape)
+    n = 1
+    for d in shape:
+        n *= d
+    keys = split(key, 2)
+    hi = random_bits(keys[..., 0, :], n)
+    lo = random_bits(keys[..., 1, :], n)
+    lead = key.shape[:-1]
+
+    def as_bound(v):
+        if torch.is_tensor(v):
+            return v.to(torch.int64).expand(lead).reshape(lead + (1,))
+        return torch.full(lead + (1,), int(v), dtype=torch.int64, device=key.device)
+
+    minval, maxval = as_bound(minval), as_bound(maxval)
+    span = torch.where(maxval <= minval, 1, (maxval - minval) & _M32)
+    # (hi * 2^32 + lo) mod span without 64-bit products, as JAX does
+    mult = (65536 % span)
+    mult = (mult * mult) % span
+    offset = ((hi % span) * mult + lo % span) & _M32
+    offset = offset % span
+    return (minval + offset).to(torch.int32).reshape(lead + shape)

@@ -1,0 +1,837 @@
+"""Vectorized env core: one step advances all envs in lockstep.
+
+This is the batched replacement for the reference's engine step protocol
+(BaseEnv.step -> engine.before_step/step/after_step,
+envs/base_env.py:426-463 + engine/base_engine.py:402-478): the manager loop
+becomes a fixed pipeline of batched tensor ops —
+
+    actions -> dynamics (x5 substeps) -> traffic release -> localization
+            -> collision flags -> reward/done/cost -> obs -> auto-reset
+
+All state is a `SimState` of tensors [E, ...] on one device; maps are
+`Scene` tensors [S, ...] compiled on the host once (mapgen/). Auto-reset
+re-spawns done envs in place, sampling a fresh scenario per the
+reference's seed cycling (base_env.py:886-891). Random draws go through
+the threefry twin in core/prng.py, so resets pick the same scenarios and
+spawn slots as the JAX package from the same seed.
+
+A step makes no host synchronisation: every branch is decided on the host
+from the config, never from tensor values.
+"""
+import numpy as np
+import torch
+
+from metadrive_ped_torch.config import Config
+from metadrive_ped_torch.constants import (
+    BICYCLE_REF_ACCEL, BICYCLE_REF_BRAKE, BICYCLE_REF_WHEELBASE_EFF,
+    SEG_BROKEN_LINE, SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
+    VEHICLE_CLASS_ORDER, VEHICLE_CLASSES,
+)
+from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core.logger import get_logger
+from metadrive_ped_torch.core.structs import (
+    PAST_POS_STEPS, EgoState, NpcState, PedState, Scene, SimState, VehicleParams, tree_map,
+)
+from metadrive_ped_torch.mapgen.scene import (
+    OBJ_BUILDING, OBJ_CONE, OBJ_WARNING, PED_WALKER, build_scene_pack,
+)
+from metadrive_ped_torch.obs import state_obs
+from metadrive_ped_torch.ops import collision, dynamics, idm, localization, participants
+from metadrive_ped_torch.ops.gather import onehot_pick, vector_lookup
+
+# ---- per-class parameter table (constants.py VEHICLE_CLASSES) -------------
+_CLS = [VEHICLE_CLASSES[k] for k in VEHICLE_CLASS_ORDER]
+_TBL_MAT = np.stack([
+    np.array([c["length"] for c in _CLS], np.float32),
+    np.array([c["width"] for c in _CLS], np.float32),
+    np.array([BICYCLE_REF_ACCEL * (c["engine"] / c["mass"]) / (800.0 / 1100.0) for c in _CLS],
+             np.float32),
+    np.array([BICYCLE_REF_BRAKE * (c["brake"] / 130.0) for c in _CLS], np.float32),
+    np.array([np.radians(c["steer"]) for c in _CLS], np.float32),
+    np.array([c["vmax"] for c in _CLS], np.float32),
+    np.array([BICYCLE_REF_WHEELBASE_EFF * c["wheelbase"] / VEHICLE_CLASSES["default"]["wheelbase"]
+              for c in _CLS], np.float32),
+], axis=-1)  # [5, 7]: length, width, accel, brake, steer, vmax, wheelbase
+DEFAULT_CLASS_IDX = VEHICLE_CLASS_ORDER.index("default")
+
+
+def make_vehicle_params(table, class_idx):
+    """VehicleParams of class ids ``class_idx`` from the device copy of
+    `_TBL_MAT` (zero rows for ids out of range)."""
+    v = vector_lookup(table, class_idx)
+    return VehicleParams(
+        length=v[..., 0], width=v[..., 1], accel_gain=v[..., 2], brake_gain=v[..., 3],
+        max_steer_rad=v[..., 4], max_speed_kmh=v[..., 5], wheelbase_eff=v[..., 6],
+    )
+
+
+def resolve_device(device):
+    """The env's device: CUDA unless the caller asks for another. Raises
+    when CUDA is asked for (or defaulted to) and absent."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the env runs on the GPU by default; pass "
+            "device='cpu' to run it on the CPU"
+        )
+    return device
+
+
+# options this package does not implement yet, with the ROADMAP.md item
+# that ports each; they raise instead of being ignored
+_NOT_PORTED = (
+    ("agent_policy", lambda v: v == "lane_change", "queue 1, item 11 (agent policies)"),
+    ("use_AI_protector", bool, "queue 1, item 11 (agent policies)"),
+    ("manual_control", bool, "queue 1, item 11 (agent policies)"),
+    ("rl_agent_ratio", lambda v: v > 0, "queue 1, item 11 (mixed traffic)"),
+    ("image_observation", bool, "queue 1, item 14 (camera and render)"),
+)
+
+
+class BaseVectorEnv:
+    """Shared machinery; reward/done/cost live in subclasses
+    (mirrors BaseEnv -> MetaDriveEnv in the reference)."""
+
+    @classmethod
+    def default_config(cls) -> Config:
+        return Config(
+            dict(
+                num_envs=16,
+                start_seed=0,
+                num_scenarios=1,
+                # per-process scenario striding for multi-host data parallel
+                # (scenario_data_manager.py:26-32, applied to PG seeds):
+                # host w of W compiles and samples seeds start_seed+w,
+                # start_seed+w+W, ...
+                worker_index=0,
+                num_workers=1,
+                map=3,  # int block count or block-ID string (pg_map.py:17-36)
+                map_config=dict(lane_width=3.5, lane_num=3, exit_length=50.0,
+                                # the reference's BaseMap GENERATE_TYPE /
+                                # GENERATE_CONFIG keys (base_map.py:30-41):
+                                # config overrides the top-level `map`
+                                type=None, config=None,
+                                xodr_file=None,  # OpenDrive ingest (not ported)
+                                # CityBIG growth instead of linear BIG
+                                # (component/map/city_map.py:97-113)
+                                city_map=False),
+                # pre-compiled scene pack (PGMapManager.load_all_maps,
+                # pg_map_manager.py:112-133)
+                map_pack_file=None,
+                # per-seed lane width/count variation
+                # (PGMapManager.add_random_to_map, pg_map_manager.py:66-74)
+                random_lane_width=False,
+                random_lane_num=False,
+                traffic_density=0.1,
+                # ego spawns on a random entrance lane per episode
+                # (metadrive_env.py:59; agent_manager.py:107-112)
+                random_spawn_lane_index=True,
+                traffic_mode="trigger",  # "trigger" | "respawn" | "hybrid"
+                # MixedPGTrafficManager share of expert-driven NPCs
+                # (traffic_manager.py:367-418)
+                rl_agent_ratio=0.0,
+                accident_prob=0.0,       # metadrive_env.py:51
+                static_traffic_object=True,
+                # opt-in traffic lights at PG intersection approaches
+                # (cycle green/yellow durations in env steps)
+                pg_traffic_lights=False,
+                pedestrian_density=0.0,  # participants on PG maps
+                horizon=None,
+                truncate_as_terminate=False,
+                auto_reset=True,
+                # discrete action interface (env_input_policy.py:9-69)
+                discrete_action=False,
+                use_multi_discrete=False,
+                discrete_steering_dim=5,
+                discrete_throttle_dim=5,
+                # agent policy family (policy/lange_change_policy.py,
+                # AI_protect_policy.py, manual_control_policy.py)
+                agent_policy=None,        # None | "lane_change"
+                use_AI_protector=False,
+                save_level=0.5,
+                manual_control=False,
+                controller="keyboard",
+                # per-episode randomized dynamics (varying_dynamics_env.py);
+                # dict of param -> (min, max) or None
+                random_dynamics=None,
+                # sample the agent's vehicle class uniformly per episode and
+                # prepend length/width obs features (agent_manager.py:41,
+                # state_obs.py:69-75)
+                random_agent_model=False,
+                decision_repeat=5,
+                physics_world_step_size=0.02,
+                # rigid contact resolution between ego and NPC/object bodies
+                # (Bullet resolves contacts every doPhysics,
+                # engine_core.py:350-352). Off = flags only.
+                contact_response=True,
+                # terrain (base_env.py:219-223): the simulation runs on an
+                # implicit flat plane; use_mesh_terrain=True raises
+                use_mesh_terrain=False,
+                height_scale=50,
+                show_terrain=True,
+                # realtime window (base_env.py use_render): always headless;
+                # True raises
+                use_render=False,
+                window_size=(1200, 900),
+                log_level=None,
+                # HUD / realtime interface: accepted and ignored (no window)
+                show_interface=True,
+                show_fps=True,
+                show_logo=True,
+                show_coordinates=False,
+                # camera observation family (not ported: raises)
+                image_observation=False,
+                norm_pixel=True,
+                stack_size=3,
+                image_source="main_camera",
+                sensors=dict(main_camera=("rgb", 84, 84)),
+                camera=dict(fov=66.0, pitch=0.0, height=1.4, max_dist=50.0),
+                vehicle_config=dict(
+                    enable_reverse=False,
+                    max_engine_force=800.0,
+                    max_brake_force=130.0,
+                    max_steering=40.0,
+                    max_speed_km_h=80.0,
+                    lidar=dict(num_lasers=240, distance=50.0, num_others=0,
+                               gaussian_noise=0.0, dropout_prob=0.0,
+                               add_others_navi=False),
+                    side_detector=dict(num_lasers=0, distance=50.0),
+                    lane_line_detector=dict(num_lasers=0, distance=20.0),
+                ),
+                # reward/cost/termination scheme (metadrive_env.py:68-89)
+                success_reward=10.0,
+                out_of_road_penalty=5.0,
+                crash_vehicle_penalty=5.0,
+                crash_object_penalty=5.0,
+                driving_reward=1.0,
+                speed_reward=0.1,
+                use_lateral_reward=False,
+                crash_vehicle_cost=1.0,
+                crash_object_cost=1.0,
+                out_of_road_cost=1.0,
+                out_of_route_done=False,
+                on_continuous_line_done=True,
+                crash_vehicle_done=True,
+                crash_object_done=True,
+                crash_human_done=True,
+            )
+        )
+
+    def __init__(self, config=None, device=None):
+        self.device = resolve_device(device)
+        self.config = self.default_config()
+        if config:
+            # `sensors` replaces wholesale (users name their own sensors)
+            self.config.update(config, stop_recursive_update=("sensors",))
+        cfg = self.config
+        if cfg["use_render"]:
+            raise NotImplementedError(
+                "use_render=True: there is no realtime window; every env is headless"
+            )
+        if cfg["use_mesh_terrain"]:
+            raise NotImplementedError(
+                "use_mesh_terrain=True: the simulation runs on an implicit flat plane"
+            )
+        for key, is_on, item in _NOT_PORTED:
+            if is_on(cfg[key]):
+                raise NotImplementedError(
+                    f"{key}={cfg[key]!r} is not ported to metadrive_ped_torch yet; "
+                    f"ROADMAP.md {item} ports it"
+                )
+        lidar = cfg["vehicle_config"]["lidar"]
+        if lidar["gaussian_noise"] > 0 or lidar["dropout_prob"] > 0:
+            raise NotImplementedError(
+                "lidar gaussian_noise/dropout_prob are not ported to "
+                "metadrive_ped_torch yet; ROADMAP.md queue 1, item 11 ports them"
+            )
+        if cfg["log_level"] is not None:
+            get_logger().setLevel(cfg["log_level"])
+        seeds = list(range(cfg["start_seed"], cfg["start_seed"] + cfg["num_scenarios"]))
+        if cfg["num_workers"] > 1:
+            seeds = seeds[cfg["worker_index"]::cfg["num_workers"]]
+            assert seeds, "num_scenarios leaves this worker without seeds"
+        map_cfg = dict(cfg["map_config"])
+        if map_cfg.get("config") is None:
+            map_cfg["config"] = cfg["map"]
+        if cfg["map_pack_file"]:
+            import pickle
+            with open(cfg["map_pack_file"], "rb") as f:
+                pack = pickle.load(f)["pack"]
+        else:
+            pack = build_scene_pack(
+                seeds,
+                dict(
+                    include_broken_line_segs=(
+                        cfg["vehicle_config"]["lane_line_detector"]["num_lasers"] > 0
+                    ),
+                    random_lane_width=cfg["random_lane_width"],
+                    random_lane_num=cfg["random_lane_num"],
+                    map_config=map_cfg,
+                    traffic_density=cfg["traffic_density"],
+                    accident_prob=cfg["accident_prob"],
+                    pedestrian_density=cfg["pedestrian_density"],
+                    spawn_roads=cfg.get("spawn_roads"),
+                    spawn_dest_nodes=cfg.get("spawn_dest_nodes"),
+                    pg_traffic_lights=cfg["pg_traffic_lights"],
+                    rl_agent_ratio=cfg["rl_agent_ratio"],
+                ),
+            )
+        self.scene = Scene.from_pack(pack, self.device)
+        get_logger().info(
+            "compiled %d PG scene(s): %d lane slots, %d NPC slots, %d boundary segs",
+            pack["lane_kind"].shape[0], pack["lane_kind"].shape[1],
+            pack["npc_lane"].shape[1], pack["seg_p0"].shape[1],
+        )
+        self.num_scenarios = int(self.scene.num_scenarios)
+        self.num_envs = cfg["num_envs"]
+        self._state = None
+        self._last_obs = None
+        # device constants, made once so that a step copies nothing from
+        # the host
+        dev = self.device
+        self._class_table = torch.as_tensor(_TBL_MAT).to(dev)
+        self._seeds = torch.as_tensor(np.asarray(seeds, np.int32)).to(dev)
+        # static (host-side) check: does any compiled scene carry a
+        # cone/warning object or a pedestrian walker?
+        self._has_cylinders = bool(
+            (pack["obj_valid"] & np.isin(pack["obj_kind"], (OBJ_CONE, OBJ_WARNING))).any()
+            or (pack["ped_valid"] & (pack["ped_kind"] == PED_WALKER)).any()
+        )
+        N, O, P = (pack[k].shape[1] for k in ("npc_lane", "obj_pos", "ped_lane"))
+        self._target_slices = dict(
+            npc=slice(0, N), obj=slice(N, N + O), ped=slice(N + O, N + O + P),
+        )
+        # per-target share of the contact push the ego takes: half against
+        # NPCs (they take the other half), all of it against static objects
+        frac = np.zeros(N + O + P, np.float32)
+        frac[:N] = 0.5
+        frac[N:N + O] = 1.0
+        self._push_frac = torch.as_tensor(frac).to(dev)
+        self._npc_timer0 = (torch.arange(N, dtype=torch.int32, device=dev) * 17) % 50
+
+    # ------------------------------------------------------------------ API
+    @property
+    def observation_dim(self):
+        vc = self.config["vehicle_config"]
+        return state_obs.obs_dim(
+            vc["lidar"]["num_lasers"], vc["lidar"]["num_others"],
+            side_lasers=vc["side_detector"]["num_lasers"],
+            lane_line_lasers=vc["lane_line_detector"]["num_lasers"],
+            random_agent_model=self.config["random_agent_model"],
+        )
+
+    def _as_tensor(self, a, dtype):
+        if torch.is_tensor(a):
+            return a.to(device=self.device, dtype=dtype)
+        return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype)
+
+    def _convert_actions(self, actions):
+        """Discrete / MultiDiscrete -> continuous
+        (env_input_policy.py:40-48 convert_to_continuous_action)."""
+        cfg = self.config
+        if not cfg["discrete_action"]:
+            return self._as_tensor(actions, torch.float32).reshape(self.num_envs, 2)
+        s_dim, t_dim = cfg["discrete_steering_dim"], cfg["discrete_throttle_dim"]
+        s_unit, t_unit = 2.0 / (s_dim - 1), 2.0 / (t_dim - 1)
+        a = self._as_tensor(actions, torch.int64)
+        if cfg["use_multi_discrete"]:
+            a = a.reshape(self.num_envs, 2)
+            steering = a[:, 0].float() * s_unit - 1.0
+            throttle = a[:, 1].float() * t_unit - 1.0
+        else:
+            a = a.reshape(self.num_envs)
+            steering = (a % s_dim).float() * s_unit - 1.0
+            throttle = (a // s_dim).float() * t_unit - 1.0
+        return torch.stack([steering, throttle], dim=-1)
+
+    def reset(self, seed=0):
+        rng = prng.prng_key(0 if seed is None else seed, self.device)
+        self._state, obs, info = self._reset_impl(rng)
+        self._last_obs = obs
+        return obs, info
+
+    def step(self, actions):
+        actions = self._convert_actions(actions)
+        self._state, obs, reward, terminated, truncated, info = self._step_impl(self._state, actions)
+        self._last_obs = obs
+        return obs, reward, terminated, truncated, info
+
+    def rollout(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
+        """Run n_steps with no host synchronisation inside a step.
+        policy_fn(obs, state) -> [E,2] actions; or fixed ``actions``.
+        Returns (dict of collected tensors stacked over steps, mean_reward).
+        """
+        fixed = (self._as_tensor(actions, torch.float32) if actions is not None
+                 else torch.zeros((self.num_envs, 2), device=self.device))
+        state, obs = self._state, self._last_obs
+        outs = {k: [] for k in collect}
+        for _ in range(n_steps):
+            act = policy_fn(obs, state) if policy_fn is not None else fixed
+            state, obs, reward, term, trunc, info = self._step_impl(state, act)
+            special = dict(
+                reward=reward, obs=obs, terminated=term, truncated=trunc,
+                ego_pos=state.ego.pos, ego_heading=state.ego.heading,
+                ego_speed=state.ego.speed, ego_action=state.ego.current_action,
+                npc_pos=state.npc.pos, npc_heading=state.npc.heading,
+                npc_speed=state.npc.speed, npc_active=state.npc.active,
+                state=state,
+            )
+            for k in collect:
+                outs[k].append(special[k] if k in special else info[k])
+        self._state, self._last_obs = state, obs
+        outs = {k: tree_map(lambda *xs: torch.stack(xs), *v) for k, v in outs.items()}
+        mean_reward = float(outs["reward"].mean()) if "reward" in outs else 0.0
+        return outs, mean_reward
+
+    def _not_ported(self, what, item):
+        raise NotImplementedError(
+            f"{what} is not ported to metadrive_ped_torch yet; ROADMAP.md {item} ports it"
+        )
+
+    def render(self, mode="topdown", **kwargs):
+        self._not_ported("render", "queue 1, item 14 (camera and render)")
+
+    def snapshot(self):
+        self._not_ported("snapshot", "queue 1, item 15 (record and replay)")
+
+    def record_episode(self, n_steps, policy_fn=None, actions=None):
+        self._not_ported("record_episode", "queue 1, item 15 (record and replay)")
+
+    def dump_all_maps(self, path):
+        self._not_ported("dump_all_maps", "queue 1, item 15 (record and replay)")
+
+    def close(self):
+        self._state = None
+
+    # -------------------------------------------------------------- spawning
+    def _spawn(self, rng, sidx):
+        """Fresh per-env episode state for scenario indices sidx [E]."""
+        scene = self.scene
+        E = sidx.shape[0]
+        s = sidx.long()
+        dev = self.device
+        if self.config["random_spawn_lane_index"]:
+            # uniform over the scenario's valid spawn slots
+            SLOT = scene.slot_valid.shape[1]
+            noise = prng.uniform(prng.fold_in(rng, 79), (SLOT,))
+            score = torch.where(scene.slot_valid[s], noise, -1.0)
+            slot = score.argmax(dim=1).to(torch.int32)  # first max, as the JAX one-hot
+        else:
+            slot = torch.zeros(E, dtype=torch.int32, device=dev)
+        # spawn poses come from the host-computed tables (core/structs.py)
+        spawn_lane = onehot_pick(scene.slot_lane[s], slot)
+        pos = scene.slot_pos[s, slot.long()]
+        heading = onehot_pick(scene.slot_heading[s], slot)
+        zeros = torch.zeros(E, device=dev)
+        false = torch.zeros(E, dtype=torch.bool, device=dev)
+        ego = EgoState(
+            pos=pos, heading=heading, speed=zeros, vel_dir=zeros,
+            steering=zeros, throttle=zeros,
+            last_action=torch.zeros((E, 2), device=dev),
+            current_action=torch.zeros((E, 2), device=dev),
+            last_pos=pos, last_heading=heading,
+            lane=spawn_lane, route_idx=torch.zeros(E, dtype=torch.int32, device=dev),
+            slot=slot, on_lane=torch.ones(E, dtype=torch.bool, device=dev),
+            crash_vehicle=false, crash_object=false, crash_human=false,
+            crash_building=false, crash_sidewalk=false,
+            on_yellow_line=false, on_white_line=false, out_of_route=false,
+            past_pos=pos[:, None, :].repeat(1, PAST_POS_STEPS, 1),
+            break_down=false,
+            params=self._ego_params(rng, E),
+        )
+        npc_long = scene.npc_long[s]
+        nz = torch.zeros_like(npc_long)
+        # Respawn: all NPCs live immediately. Trigger/Hybrid: released when
+        # the ego enters the trigger road (traffic_manager.py:20-29, 69).
+        active = scene.npc_valid[s]
+        npc = NpcState(
+            pos=scene.npc_spawn_pos[s], heading=scene.npc_spawn_heading[s],
+            speed=nz, vel_dir=nz, lane=scene.npc_lane[s], active=active,
+            released=active if self.config["traffic_mode"] == "respawn" else torch.zeros_like(active),
+            heading_pid_i=nz, heading_pid_e=nz, lateral_pid_i=nz, lateral_pid_e=nz,
+            # staggered overtake timers (the reference seeds them randomly,
+            # idm_policy.py:231)
+            overtake_timer=self._npc_timer0.expand(E, -1).clone(),
+            params=make_vehicle_params(self._class_table, scene.npc_class[s]),
+        )
+        ped_long = scene.ped_long[s]
+        ped = PedState(long=ped_long, direction=torch.ones_like(ped_long),
+                       active=scene.ped_valid[s])
+        return SimState(
+            rng=rng, sidx=sidx, step_count=torch.zeros(E, dtype=torch.int32, device=dev),
+            episode_reward=zeros, episode_cost=zeros, episode_energy=zeros,
+            dead_timer=torch.zeros(E, dtype=torch.int32, device=dev),
+            scenario_cap=torch.full((E,), self.num_scenarios, dtype=torch.int32, device=dev),
+            aux=torch.zeros((E, 4), device=dev), policy_state=torch.zeros((E, 4), device=dev),
+            ego=ego, npc=npc, ped=ped,
+        )
+
+    def _ego_params(self, rng, E):
+        """Default-class params, optionally re-sampled per episode from the
+        random_dynamics ranges (varying_dynamics_env.py:28-49)."""
+        dev = self.device
+        if self.config["random_agent_model"]:
+            # uniform class draw per episode (vehicle_type.py:269-282)
+            cls = prng.randint(prng.fold_in(rng, 78), (), 0, len(VEHICLE_CLASS_ORDER))
+            base = make_vehicle_params(self._class_table, cls)
+        else:
+            base = make_vehicle_params(
+                self._class_table, torch.full((E,), DEFAULT_CLASS_IDX, dtype=torch.int32, device=dev))
+        full = lambda v: torch.full((E,), float(v), device=dev)
+        # user vehicle_config overrides (base_vehicle.py:447-484), applied
+        # when set away from the defaults
+        vc = self.config["vehicle_config"]
+        if vc["max_engine_force"] != 800.0:
+            base = base.replace(accel_gain=full(
+                BICYCLE_REF_ACCEL * (vc["max_engine_force"] / 1100.0) / (800.0 / 1100.0)))
+        if vc["max_brake_force"] != 130.0:
+            base = base.replace(brake_gain=full(BICYCLE_REF_BRAKE * (vc["max_brake_force"] / 130.0)))
+        if vc["max_steering"] != 40.0:
+            base = base.replace(max_steer_rad=full(np.radians(vc["max_steering"])))
+        if vc["max_speed_km_h"] != 80.0:
+            base = base.replace(max_speed_kmh=full(vc["max_speed_km_h"]))
+        rd = self.config["random_dynamics"]
+        if not rd:
+            return base
+        draws = prng.uniform(prng.fold_in(rng, 77), (5,))  # [E,5]
+
+        def rng_range(i, lo_hi, default):
+            if lo_hi is None:
+                return full(default)
+            lo, hi = lo_hi
+            return lo + draws[:, i] * (hi - lo)
+
+        engine = rng_range(0, rd.get("max_engine_force"), 800.0)
+        brake = rng_range(1, rd.get("max_brake_force"), 130.0)
+        steer = rng_range(2, rd.get("max_steering"), 40.0)
+        mass = rng_range(3, rd.get("mass"), 1100.0)
+        # wheel_friction scales how sharply the car can actually turn
+        fric = rng_range(4, rd.get("wheel_friction"), 0.9)
+        return base.replace(
+            accel_gain=BICYCLE_REF_ACCEL * (engine / mass) / (800.0 / 1100.0),
+            brake_gain=BICYCLE_REF_BRAKE * (brake / 130.0),
+            max_steer_rad=torch.deg2rad(steer),
+            wheelbase_eff=base.wheelbase_eff * torch.clamp(0.9 / fric, 0.5, 2.0),
+        )
+
+    def _seed_of(self, sidx):
+        """Local scenario index -> global seed."""
+        if self.config["num_workers"] <= 1:
+            return sidx + self.config["start_seed"]
+        return vector_lookup(self._seeds, sidx)
+
+    def _reset_impl(self, rng):
+        E = self.num_envs
+        keys = prng.split(rng, E + 1)
+        # scenario assignment: uniform over [0, num_scenarios)
+        # (reference _reset_global_seed, base_env.py:886-891)
+        sidx = prng.randint(keys[0], (E,), 0, self.num_scenarios)
+        state = self._spawn(keys[1:], sidx)
+        ego_long = self.scene.slot_long[sidx.long(), state.ego.slot.long()]
+        obs = self._observe(state, ego_long, torch.zeros(E, device=self.device))
+        return state, obs, dict(env_seed=self._seed_of(sidx))
+
+    def _lidar_targets(self, state):
+        """(pos, heading, len, wid, active) [E,T,...] of every lidar-visible
+        and collidable body: NPC vehicles + static traffic objects +
+        pedestrians/cyclists (reference lidar mask, lidar.py:28), and the
+        per-target radius [E,T] of cylinder bodies (pedestrian r=0.35, cone
+        r=0.2, warning r=0.5 — pedestrian.py:12-118,
+        traffic_object.py:43-160), or None when no compiled scene has one."""
+        scene, npc = self.scene, state.npc
+        s = state.sidx.long()
+        ped_pos, ped_heading = participants.ped_world_pose(scene, state.sidx, state.ped)
+        targets = (
+            torch.cat([npc.pos, scene.obj_pos[s], ped_pos], dim=1),
+            torch.cat([npc.heading, scene.obj_heading[s], ped_heading], dim=1),
+            torch.cat([npc.params.length, scene.obj_len[s], scene.ped_len[s]], dim=1),
+            torch.cat([npc.params.width, scene.obj_wid[s], scene.ped_wid[s]], dim=1),
+            torch.cat([npc.active, scene.obj_valid[s], state.ped.active], dim=1),
+        )
+        radius = None
+        if self._has_cylinders:
+            okind = scene.obj_kind[s]
+            obj_r = torch.where(okind == OBJ_CONE, 0.2, torch.where(okind == OBJ_WARNING, 0.5, 0.0))
+            ped_r = torch.where(scene.ped_kind[s] == PED_WALKER, 0.35, 0.0)
+            radius = torch.cat([torch.zeros_like(npc.speed), obj_r, ped_r], dim=1)
+        return targets, radius
+
+    def _resolve_contacts(self, ego, npc, hits, t_pos, t_heading, t_len, t_wid):
+        """Batched rigid contact response (replaces Bullet's solver,
+        engine_core.py:350-352): for every ego<->body overlap compute the SAT
+        minimum-translation vector, split it between the two dynamic bodies
+        (equal mass; objects are static -> the ego takes the full push), and
+        remove each body's closing velocity component. Pedestrians don't
+        block the chassis; crash_human stays a flag."""
+        depth, normal = collision.obb_obb_mtv(
+            ego.pos[:, None, :], ego.heading[:, None],
+            ego.params.length[:, None], ego.params.width[:, None],
+            t_pos, t_heading, t_len, t_wid,
+        )
+        depth = torch.clamp(depth, min=0.0)
+        frac = self._push_frac
+        contact = hits & (frac > 0)
+
+        push = torch.where(contact, depth * frac, 0.0)[..., None] * normal
+        push = push.sum(dim=1)
+        # cap a single-step correction (deep spawn overlaps shouldn't teleport)
+        mag = torch.sqrt((push ** 2).sum(-1, keepdim=True))
+        push = push * torch.clamp(1.0 / torch.clamp(mag, min=1.0), max=1.0)
+        scale = collision.contact_speed_scale(ego.speed, ego.heading + ego.vel_dir, normal, contact)
+        ego = ego.replace(pos=ego.pos + push, speed=ego.speed * scale)
+
+        # NPCs take the opposite half of their contact with the ego
+        sl = self._target_slices["npc"]
+        n_hit, n_depth, n_normal = hits[:, sl], depth[:, sl], normal[:, sl]
+        n_push = torch.where(n_hit, -0.5 * n_depth, 0.0)[..., None] * n_normal
+        n_scale = collision.contact_speed_scale(
+            npc.speed, npc.heading + npc.vel_dir, -n_normal[:, :, None, :], n_hit[:, :, None],
+        )
+        npc = npc.replace(pos=npc.pos + n_push, speed=npc.speed * n_scale)
+        return ego, npc
+
+    def _observe(self, state, ego_long, ego_lat):
+        vc = self.config["vehicle_config"]
+        lidar_cfg = vc["lidar"]
+        targets, radius = self._lidar_targets(state)
+        side_lasers = vc["side_detector"]["num_lasers"]
+        ll_lasers = vc["lane_line_detector"]["num_lasers"]
+        line_segs = None
+        if side_lasers > 0 or ll_lasers > 0:
+            scene, s = self.scene, state.sidx.long()
+            styp = scene.seg_type[s]
+            valid = scene.seg_valid[s]
+            cont = ((styp == SEG_YELLOW_LINE) | (styp == SEG_WHITE_LINE)) & valid
+            anyline = cont | ((styp == SEG_BROKEN_LINE) & valid)
+            line_segs = (*scene.seg_points(state.sidx), cont, anyline)
+        sl = self._target_slices
+        return state_obs.observe(
+            self.scene, state.sidx, state.ego, targets, ego_long, ego_lat,
+            num_lasers=lidar_cfg["num_lasers"], lidar_distance=lidar_cfg["distance"],
+            num_others=lidar_cfg["num_others"], npc=state.npc,
+            side_lasers=side_lasers, side_distance=vc["side_detector"]["distance"],
+            lane_line_lasers=ll_lasers,
+            lane_line_distance=vc["lane_line_detector"]["distance"],
+            line_segs=line_segs,
+            random_agent_model=self.config["random_agent_model"],
+            t_radius=radius, circle_slice=slice(sl["obj"].start, sl["ped"].stop),
+        )
+
+    # ------------------------------------------------------------------ step
+    def _step_impl(self, state, actions):
+        cfg = self.config
+        scene = self.scene
+        sidx = state.sidx
+        s = sidx.long()
+        # NaN -> 0, +/-inf -> +/-1, clip to [-1, 1]
+        # (reference _preprocess_action -> safe_clip_for_small_array,
+        # base_vehicle.py:204-209 + utils/math.py:16-26)
+        actions = torch.clamp(torch.nan_to_num(actions, nan=0.0, posinf=1.0, neginf=-1.0), -1.0, 1.0)
+        # broken-down vehicles ignore their actions and coast to a stop
+        actions = torch.where(state.ego.break_down[:, None], 0.0, actions)
+
+        ego = state.ego
+        # before_step (base_vehicle.py:211-232): save last kinematics, apply action
+        ego = ego.replace(
+            last_pos=ego.pos, last_heading=ego.heading,
+            last_action=ego.current_action, current_action=actions,
+            steering=actions[:, 0], throttle=actions[:, 1],
+            past_pos=torch.cat([ego.past_pos[:, 1:], ego.pos[:, None]], dim=1),
+        )
+
+        # ego dynamics (decision_repeat substeps)
+        dt = cfg["physics_world_step_size"]
+        rep = cfg["decision_repeat"]
+        pos, heading, speed, vel_dir = dynamics.step_vehicle(
+            ego.pos, ego.heading, ego.speed, ego.vel_dir,
+            ego.steering, ego.throttle, ego.params, dt=dt, substeps=rep,
+            enable_reverse=cfg["vehicle_config"]["enable_reverse"],
+        )
+        ego = ego.replace(pos=pos, heading=heading, speed=speed, vel_dir=vel_dir)
+
+        # PG traffic-light phases (opt-in): green -> yellow -> red per arm,
+        # opposite arms antiphased. Computed before the NPC step so red
+        # lights gate IDM traffic too.
+        light_ctx = None
+        if scene.light_lane.shape[1] > 0 and cfg["pg_traffic_lights"]:
+            lcfg = cfg["pg_traffic_lights"]
+            g_dur = int(lcfg.get("green", 30)) if isinstance(lcfg, dict) else 30
+            y_dur = int(lcfg.get("yellow", 4)) if isinstance(lcfg, dict) else 4
+            half = g_dur + y_dur
+            phase = (state.step_count[:, None] + scene.light_offset[s]) % (2 * half)
+            status = torch.where(phase < g_dur, 0, torch.where(phase < half, 1, 2))  # g/y/r
+            light_ctx = dict(
+                status=status, valid=scene.light_valid[s],
+                lane=scene.light_lane[s], long=scene.light_long[s],
+                pos=scene.light_pos[s], heading=scene.light_heading[s],
+                width=scene.light_width[s],
+            )
+
+        # NPC traffic: release by trigger road, IDM actuation, dynamics
+        npc = state.npc
+        cur_road = localization.route_road_at(scene, sidx, ego.slot, ego.route_idx)
+        released = npc.released | (scene.npc_trigger_road[s] == cur_road[:, None])
+        npc = npc.replace(released=released)
+        light_block = None
+        if light_ctx is not None:
+            # red lights hold IDM NPCs at the stop line
+            light_block = (light_ctx["lane"], light_ctx["long"],
+                           light_ctx["valid"] & (light_ctx["status"] == 2))
+        npc = idm.step_npcs(
+            scene, sidx, npc, ego, dt=dt, substeps=rep,
+            respawn_mode=cfg["traffic_mode"] in ("respawn", "hybrid"), light_block=light_block,
+        )
+
+        # pedestrians / cyclists advance kinematically
+        ped = participants.step_peds(scene, sidx, state.ped, dt * rep)
+        state = state.replace(ego=ego, npc=npc, ped=ped)
+
+        # contact flags (_state_check, base_vehicle.py:700-792)
+        targets, t_radius = self._lidar_targets(state)
+        t_pos, t_heading, t_len, t_wid, t_active = targets
+        kinds = self._target_slices
+        hits = collision.obb_obb_overlap(
+            ego.pos[:, None, :], ego.heading[:, None],
+            ego.params.length[:, None], ego.params.width[:, None],
+            t_pos, t_heading, t_len, t_wid,
+        ) & t_active
+        if t_radius is not None:
+            # cylinder bodies use the exact OBB-vs-circle test
+            sl = slice(kinds["obj"].start, kinds["ped"].stop)
+            circ = t_radius[:, sl] > 0
+            circ_hits = collision.obb_circle_overlap(
+                ego.pos[:, None, :], ego.heading[:, None],
+                ego.params.length[:, None], ego.params.width[:, None],
+                t_pos[:, sl], t_radius[:, sl],
+            ) & t_active[:, sl] & circ
+            hits = torch.cat(
+                [hits[:, :sl.start], torch.where(circ, circ_hits, hits[:, sl]), hits[:, sl.stop:]],
+                dim=1)
+        crash_v = hits[:, kinds["npc"]].any(dim=1)
+        obj_hits = hits[:, kinds["obj"]]
+        # toll booths are buildings, not traffic objects
+        is_building = scene.obj_kind[s] == OBJ_BUILDING
+        crash_o = (obj_hits & ~is_building).any(dim=1)
+        crash_b = (obj_hits & is_building).any(dim=1)
+        crash_h = hits[:, kinds["ped"]].any(dim=1)
+
+        # rigid contact response: project the bodies apart and kill the
+        # closing velocity (Bullet's per-substep contact resolution,
+        # engine_core.py:350-352)
+        if cfg["contact_response"]:
+            ego, npc = self._resolve_contacts(ego, npc, hits, t_pos, t_heading, t_len, t_wid)
+            state = state.replace(ego=ego, npc=npc)
+
+        # localization + navigation update (after_step,
+        # base_vehicle.py:234-253)
+        loc = localization.localize(scene, sidx, ego.slot, ego.pos, ego.lane, ego.route_idx)
+        ego = ego.replace(lane=loc["lane"], route_idx=loc["route_idx"], on_lane=loc["on_lane"])
+        seg_flags = collision.vehicle_segment_flags(
+            ego.pos, ego.heading, ego.params.length, ego.params.width,
+            *scene.seg_points(sidx),
+            scene.seg_type[s], scene.seg_halfwidth[s], scene.seg_valid[s],
+            (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK),
+        )
+        left, right = localization.boundary_distances(scene, sidx, ego.slot, ego.route_idx, ego.pos)
+        ego = ego.replace(
+            on_yellow_line=seg_flags[SEG_YELLOW_LINE],
+            on_white_line=seg_flags[SEG_WHITE_LINE],
+            crash_sidewalk=seg_flags[SEG_SIDEWALK],
+            crash_vehicle=crash_v, crash_object=crash_o,
+            crash_building=crash_b, crash_human=crash_h,
+            out_of_route=(left < 0) | (right < 0),
+        )
+
+        step_count = state.step_count + 1
+        state = state.replace(ego=ego, npc=npc, step_count=step_count)
+
+        # reward / done / cost (subclass formulas)
+        arrive = localization.arrive_destination(scene, sidx, ego.slot, ego.pos)
+        out_of_road = self._is_out_of_road(ego)
+        reward, step_info = self.reward_function(state, loc, arrive, out_of_road)
+        cost, cost_info = self.cost_function(state, out_of_road)
+        terminated, truncated, done_info = self.done_function(state, arrive, out_of_road)
+
+        episode_reward = state.episode_reward + reward
+        episode_cost = state.episode_cost + cost
+        # fuel model 3.25*e^(0.01 v_kmh) L/100km (base_vehicle.py:259-271)
+        dist_km = torch.sqrt(((ego.pos - ego.last_pos) ** 2).sum(-1)) / 1000.0
+        step_energy = 3.25 * torch.exp(0.01 * ego.speed * 3.6) * dist_km / 100.0 * 1000.0
+        episode_energy = state.episode_energy + step_energy
+        state = state.replace(
+            episode_reward=episode_reward, episode_cost=episode_cost,
+            episode_energy=episode_energy,
+        )
+
+        done = terminated | truncated
+        # crash aggregates vehicle/object/building/sidewalk/human
+        # (metadrive_env.py:148-152)
+        crash_any = (ego.crash_vehicle | ego.crash_object | ego.crash_sidewalk
+                     | ego.crash_human | ego.crash_building)
+        info = dict(
+            arrive_dest=arrive, out_of_road=out_of_road,
+            crash_vehicle=ego.crash_vehicle, crash_object=ego.crash_object,
+            crash_human=ego.crash_human, crash_sidewalk=ego.crash_sidewalk,
+            crash_building=ego.crash_building,
+            crash=crash_any,
+            max_step=truncated, cost=cost, total_cost=episode_cost,
+            step_reward=step_info["step_reward"],
+            velocity=ego.speed, steering=ego.steering, acceleration=ego.throttle,
+            step_energy=step_energy, episode_energy=episode_energy,
+            episode_reward=episode_reward, episode_length=step_count,
+            env_seed=self._seed_of(sidx),
+        )
+        info.update({k: v for k, v in step_info.items() if k != "step_reward"})
+        info.update(done_info)
+        info.update(cost_info)
+
+        # traffic-light contact flags: the ego OBB against each light's
+        # air-wall stop region, a 0.25 m x lane-width box across the lane
+        # end (base_traffic_light.py:17, 44-51; base_vehicle.py:720-733)
+        if light_ctx is not None:
+            wall = collision.obb_obb_overlap(
+                ego.pos[:, None, :], ego.heading[:, None],
+                ego.params.length[:, None], ego.params.width[:, None],
+                light_ctx["pos"], light_ctx["heading"],
+                torch.full_like(light_ctx["width"], 0.25), light_ctx["width"],
+            ) & light_ctx["valid"]
+            status = light_ctx["status"]
+            info["on_green_light"] = (wall & (status == 0)).any(dim=1)
+            info["on_yellow_light"] = (wall & (status == 1)).any(dim=1)
+            info["on_red_light"] = (wall & (status == 2)).any(dim=1)
+
+        # auto-reset done envs in place (vectorized-RL semantics replacing
+        # the reference's explicit env.reset())
+        if cfg["auto_reset"]:
+            new_keys = prng.split(state.rng, 2)                 # [E,2,2]
+            step_rng, reset_rng = new_keys[:, 0], new_keys[:, 1]
+            cap = state.scenario_cap
+            new_sidx = prng.randint(step_rng, (), 0, cap)
+            fresh = self._spawn(reset_rng, new_sidx)
+            state = tree_map(
+                lambda new, old: torch.where(done.reshape(done.shape + (1,) * (old.dim() - 1)),
+                                             new, old),
+                fresh, state.replace(rng=step_rng),
+            )
+            # _spawn sets the full scenario band; keep the live cap
+            state = state.replace(scenario_cap=cap)
+            ego_long = torch.where(done, 5.0, loc["long"])
+            ego_lat = torch.where(done, 0.0, loc["lat"])
+        else:
+            ego_long, ego_lat = loc["long"], loc["lat"]
+
+        obs = self._observe(state, ego_long, ego_lat)
+        return state, obs, reward, terminated, truncated, info
+
+    # ---- overridable scheme ------------------------------------------------
+    def _is_out_of_road(self, ego):
+        raise NotImplementedError
+
+    def reward_function(self, state, loc, arrive, out_of_road):
+        raise NotImplementedError
+
+    def cost_function(self, state, out_of_road):
+        raise NotImplementedError
+
+    def done_function(self, state, arrive, out_of_road):
+        raise NotImplementedError

@@ -1,0 +1,98 @@
+"""metadrive_ped_torch and chip_smoke.py stand alone: they import neither
+jax, flax nor metadrive_ped_tpu, the env needs an explicit device="cpu"
+without a GPU, and chip_smoke.py refuses to run without one."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "flax", "metadrive_ped_tpu")
+
+_BLOCKED_RUN = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+from metadrive_ped_torch import MetaDriveEnv
+env = MetaDriveEnv(dict(num_envs=4, map="SC", num_scenarios=2, traffic_density=0.1,
+                        vehicle_config=dict(side_detector=dict(num_lasers=4),
+                                            lane_line_detector=dict(num_lasers=3))),
+                   device="cpu")
+obs, _ = env.reset(seed=0)
+for _ in range(5):
+    obs, *_ = env.step(np.tile([0.0, 1.0], (4, 1)))
+import chip_smoke
+loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
+assert not loaded, loaded
+print("stepped", tuple(obs.shape))
+"""
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=ROOT if cwd == ROOT else "")
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_runs_with_jax_blocked():
+    out = _run(["-c", _BLOCKED_RUN], ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "stepped (4, 263)" in out.stdout
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "metadrive_ped_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", "")) in
+              ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) > 20
+    for path in sources:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in BLOCKED, (path, mod)
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    from metadrive_ped_torch import MetaDriveEnv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MetaDriveEnv(dict(num_envs=2, map="S", traffic_density=0.0))
+    with pytest.raises(RuntimeError):
+        MetaDriveEnv(dict(num_envs=2, map="S", traffic_density=0.0), device="cuda")
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    out = _run(["chip_smoke.py"], ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    # and alone, without the rest of the repository
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = _run(["chip_smoke.py"], str(tmp_path))
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Where the time of one main-path step of metadrive_ped_torch goes on the GPU.
+
+    python3 tools/profile_torch_step.py [--num-envs 8192] [--steps 10] [--table PATH]
+
+Builds the env of chip_smoke.py's main path (the `pg` bench protocol with
+the side and lane-line detectors on), warms it up, then measures:
+
+- wall ms per step (host clock around steps ending in a synchronize);
+- device-busy ms per step and the busy share, from torch.profiler's CUDA
+  kernel times over the same number of steps;
+- kernel launches per step;
+- device ms, wall ms and launches of each stage of the step, each run
+  alone on the step's state (the stages sum to about the whole step).
+
+Prints one JSON line; with --table, writes the profiler's kernel table of
+the whole step to PATH.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def kernel_stats(prof, calls):
+    """(device ms per call, launches per call) of the CUDA kernels a
+    profiler saw over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+            sum(e.count for e in kernels) / calls)
+
+
+def profiled(fn, calls):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--num-envs", type=int, default=8192)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--table", help="file for the profiler's kernel table")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_step.py needs a CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import MAIN_PATH
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.constants import (
+        SEG_BROKEN_LINE, SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
+    )
+    from metadrive_ped_torch.ops import collision, dynamics, idm, localization, raycast
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    env = MetaDriveEnv(dict(MAIN_PATH, num_envs=args.num_envs), device="cuda")
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
+    env.reset(seed=0)
+    for _ in range(30):
+        env.step(act)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        env.step(act)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    prof = profiled(lambda: env.step(act), args.steps)
+    busy_ms, launches = kernel_stats(prof, args.steps)
+    if args.table:
+        with open(args.table, "w") as f:
+            f.write(f"{card}; {E} envs; {args.steps} steps\n")
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
+                                              max_name_column_width=90))
+
+    # the stages of _step_impl, each alone on the current state
+    st, scene, cfg = env._state, env.scene, env.config
+    vc = cfg["vehicle_config"]
+    ego, s = st.ego, st.sidx.long()
+    targets, radius = env._lidar_targets(st)
+    p0, p1 = scene.seg_points(st.sidx)
+    styp, svalid = scene.seg_type[s], scene.seg_valid[s]
+    cont = ((styp == SEG_YELLOW_LINE) | (styp == SEG_WHITE_LINE)) & svalid
+    anyline = cont | ((styp == SEG_BROKEN_LINE) & svalid)
+    zeros = torch.zeros(E, device="cuda")
+    stages = {
+        "ego dynamics": lambda: dynamics.step_vehicle(
+            ego.pos, ego.heading, ego.speed, ego.vel_dir, ego.steering, ego.throttle, ego.params),
+        "traffic (IDM, 3 gap searches)": lambda: idm.step_npcs(scene, st.sidx, st.npc, ego),
+        "lidar targets + OBB contact flags": lambda: collision.obb_obb_overlap(
+            ego.pos[:, None, :], ego.heading[:, None], ego.params.length[:, None],
+            ego.params.width[:, None], *env._lidar_targets(st)[0][:4]),
+        "contact response (SAT MTV)": lambda: env._resolve_contacts(
+            ego, st.npc, torch.ones_like(targets[4]), *targets[:4]),
+        "localize": lambda: localization.localize(scene, st.sidx, ego.slot, ego.pos, ego.lane,
+                                                  ego.route_idx),
+        "boundary-segment flags": lambda: collision.vehicle_segment_flags(
+            ego.pos, ego.heading, ego.params.length, ego.params.width, *scene.seg_points(st.sidx),
+            styp, scene.seg_halfwidth[s], svalid, (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK)),
+        "lidar cloud (240 rays x OBBs)": lambda: raycast.lidar_cloud(
+            ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"], *targets,
+            radius=radius),
+        "side + lane-line clouds (kernel x2)": lambda: (
+            raycast.side_detector_cloud(ego.pos, ego.heading, 160, 50.0, p0, p1, cont),
+            raycast.side_detector_cloud(ego.pos, ego.heading, 12, 20.0, p0, p1, anyline)),
+        "observation (whole)": lambda: env._observe(st, zeros, zeros),
+        "auto-reset spawn (threefry + gathers)": lambda: env._spawn(st.rng, st.sidx),
+        "reward/cost/done": lambda: env.done_function(st, zeros > 0, zeros > 0),
+    }
+    stage_rows = {}
+    for name, fn in stages.items():
+        ms, n = kernel_stats(profiled(fn, 5), 5)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        stage_rows[name] = dict(device_ms=ms, wall_ms=(time.perf_counter() - t0) * 1e3 / 5,
+                                launches=n)
+    print(json.dumps(dict(
+        card=card, num_envs=E, steps=args.steps, wall_ms_per_step=wall_ms,
+        env_steps_per_s=E / wall_ms * 1e3, device_busy_ms_per_step=busy_ms,
+        busy_share=busy_ms / wall_ms, launches_per_step=launches,
+        launch_bound_hint_us_per_launch=wall_ms * 1e3 / launches,
+        stages=stage_rows)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
