@@ -8,15 +8,19 @@ needs one CUDA device, and prints one JSON line per phase:
 
 1. device        the card (nvidia-smi name and power limit), torch and CUDA
 2. build         nvcc of every kernel, its seconds and ptxas registers/smem
-3. kernel_vs_plain  the ray-segment kernel against its plain torch version
-                 at the main path's shapes (E=8192, R=160 and R=12, B of
-                 the compiled pack) and at ragged shapes; max_abs_err must
-                 be <= 1e-5; kernel, plain and roofline-bound times
+3. kernel_vs_plain  the detector-cloud kernel against its plain torch
+                 version at the main path's shapes (E=8192, side 160 rays
+                 at 50 m and lane-line 12 at 20 m, the pack's line table)
+                 and on the cases of `line_cases` (ragged E, S and table
+                 rows, n_cont = 0, Rs = 300, Rs = 0, Rl = 0, Rl = 40, exact
+                 boundary geometry); max_abs_err must be <= 1e-5 and the
+                 hits (out < 1) of both equal; kernel, plain and
+                 roofline-bound times
 4. env           the main path at full width: the `pg` bench protocol
                  (bench.py:28-32, 8192 envs) with lidar 240, side detector
                  160 and lane-line detector 12 lasers, full throttle for 200
                  steps; env-steps/s over steps 100-200, obs checks, episodes
-                 finished, kernel launches (must be 2 * steps + 2), and one
+                 finished, kernel launches (must be steps + 1), and one
                  step under torch.cuda.set_sync_debug_mode("error")
 5. card_vs_cpu   32 envs for 20 steps on the card and on the CPU: obs and
                  reward within 1e-4, discrete flags equal
@@ -48,7 +52,7 @@ CPU_TOL = 1e-4
 # outside the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
-# float32 operations per (ray, valid segment) pair in csrc/ray_segment.cu:
+# float32 operations per (ray, line) pair of the ray-segment sweep:
 # denom 3 (2 mul, 1 sub), |denom| guard 2, rel 2, t 4 (2 mul, sub, div),
 # u 4, hit tests 3, scale 1 (div), clip 2
 OPS_PER_PAIR = 21
@@ -79,50 +83,167 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def ray_segment_bound(E, R, B, valid):
-    """Least time (ms) for one ray-segment sweep on the card, and what sets
-    it: each input read once and the output written once, against
-    OPS_PER_PAIR operations for every (ray, valid segment) pair of this
-    input."""
-    bytes_moved = 4 * (2 * E + 2 * E * R + 4 * E * B + E * R) + E * B
-    ops = OPS_PER_PAIR * R * int(valid.sum())
+# ---- inputs of the detector-cloud kernel ----------------------------------
+# A case is (origin [E,2], sidx [E], side (dx, dy) [E,Rs], lane (dx, dy)
+# [E,Rl], side_dist, lane_dist, table [S,Bl,4], counts [S,2]) as numpy
+# arrays; the tests use the same cases on the CPU.
+
+def random_line_case(E, S, Bl, Rs, Rl, seed, counts=None):
+    """Random segments in a 60 m square around origins in a 10 m one, each
+    scenario with random (n_cont, n_any) unless ``counts`` is given."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    if counts is None:
+        n_any = rng.randint(1, Bl + 1, S)
+        n_any[0] = Bl
+        counts = np.stack([rng.randint(0, n_any + 1), n_any], axis=1)
+    counts = np.asarray(counts, np.int32)
+    # s = p1 - p0 rounded in float32, as build_line_table makes it
+    p0 = f32(rng.uniform(-30, 30, (S, Bl, 2)))
+    p1 = f32(p0 + rng.uniform(-10, 10, (S, Bl, 2)))
+    table = np.concatenate([p0, p1 - p0], -1)
+    table[np.arange(Bl)[None, :] >= counts[:, 1:2]] = 0.0
+
+    def fan(R):
+        ang = rng.uniform(-np.pi, np.pi, (E, R))
+        return f32(np.cos(ang)), f32(np.sin(ang))
+    return (f32(rng.uniform(-5, 5, (E, 2))), rng.randint(0, S, E).astype(np.int32), fan(Rs), fan(Rl),
+            50.0, 20.0, f32(table), counts)
+
+
+def adversarial_line_case(E=2048, seed=3, subnormal=True):
+    """Exact boundary geometry on integer coordinates: each env has its own
+    scenario of one segment that puts a pair of one of eight rays (the axes
+    and the diagonals, every env carries all eight) on a hit/miss boundary:
+    u exactly 0 or 1, the origin on the segment or at its end (t = 0),
+    segments parallel or collinear to the ray (|d x s| < 1e-9), zero-length
+    segments on and off the ray, segments behind the origin, |d x s|
+    just below, at and above the 1e-9 guard, and a segment start a
+    subnormal distance from the origin (t and u of a subnormal over a
+    normal number, which may round to -0; with ``subnormal=False`` those
+    envs take the u = 0 geometry instead). The side detector sees the
+    segment in two envs of three, the lane-line detector in all."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    c = np.float32(np.sqrt(0.5))
+    steps = np.array([(1, 0), (0, 1), (-1, 0), (0, -1), (1, 1), (-1, 1), (-1, -1), (1, -1)],
+                     np.float32)
+    dirs = np.array([(1, 0), (0, 1), (-1, 0), (0, -1), (c, c), (-c, c), (-c, -c), (c, -c)],
+                    np.float32)
+    origin = rng.randint(-20, 21, (E, 2)).astype(np.float32)
+    table = np.zeros((E, 1, 4), np.float32)
+    for i in range(E):
+        D = steps[i % 8]
+        perp = np.array([-D[1], D[0]], np.float32)
+        k = float(rng.randint(1, 60))
+        s = rng.randint(-10, 11, 2).astype(np.float32)
+        while s[0] * D[1] == s[1] * D[0]:     # not parallel to the ray
+            s = rng.randint(-10, 11, 2).astype(np.float32)
+        n = float(rng.choice([-7, -3, -1, 1, 2, 5]))
+        o = origin[i]
+        P = o + k * D
+        kind = (i // 8) % 12
+        if kind == 10 and i % 8 < 4:
+            # an axis ray against a segment of length eps across it, on
+            # integer coordinates with the cross axis at 0: |d x s| = eps
+            j = 0 if D[0] != 0 else 1
+            o[1 - j] = 0.0
+            a = o + k * D
+            seg = np.zeros(2, np.float32)
+            seg[1 - j] = [3e-10, -3e-10, 1e-9, 2e-9, -2e-9, 5e-10][(i // 96) % 6]
+        elif kind == 11 and subnormal:
+            o[:] = 0.0
+            a = rng.randint(-3, 4, 2).astype(np.float32) * np.float32(1e-45)
+            seg = s
+        else:
+            a, seg = [
+                (P, s),                        # u = 0
+                (P - s, s),                    # u = 1
+                (o - s, 2 * s),                # the origin in the middle: t = 0
+                (o, s),                        # the origin at an end: t = 0, u = 0
+                (P + n * perp, n * D),         # parallel, beside the ray
+                (P, n * D),                    # collinear with the ray
+                (P, 0 * s),                    # zero length, on the ray
+                (P + perp, 0 * s),             # zero length, off the ray
+                (o - k * D, s),                # behind the origin, u = 0
+                (o - k * D - s, s),            # behind the origin, u = 1
+                (P, s),                        # kind 10 on a diagonal
+                (P, s),                        # kind 11 without subnormals
+            ][kind]
+        table[i, 0] = (*a, *seg)
+    n_cont = np.where(np.arange(E) % 3 == 2, 0, 1)
+    counts = np.stack([n_cont, np.ones(E, np.int64)], axis=1).astype(np.int32)
+    # the side fan adds 8 random rays to the eight
+    ang = rng.uniform(-np.pi, np.pi, (E, 8))
+    lane = tuple(np.ascontiguousarray(np.tile(dirs[:, j], (E, 1))) for j in (0, 1))
+    side = (np.concatenate([lane[0], np.cos(ang).astype(np.float32)], 1),
+            np.concatenate([lane[1], np.sin(ang).astype(np.float32)], 1))
+    return origin, np.arange(E, dtype=np.int32), side, lane, 50.0, 20.0, table, counts
+
+
+def line_cases():
+    """The named cases of the kernel_vs_plain phase beside the main path."""
+    return {
+        "ragged_E_S_Bl": lambda: random_line_case(4097, 7, 1500, 160, 12, seed=1),
+        "n_cont_0_n_any_1": lambda: random_line_case(1024, 64, 1, 160, 12, seed=2,
+                                                     counts=[[0, 1]] * 64),
+        "Rs_300": lambda: random_line_case(7, 3, 777, 300, 12, seed=3),
+        "Rs_0": lambda: random_line_case(65, 5, 600, 0, 12, seed=4),
+        "Rl_0": lambda: random_line_case(65, 5, 600, 160, 0, seed=5),
+        "Rl_40": lambda: random_line_case(65, 5, 600, 160, 40, seed=6),
+        "adversarial": adversarial_line_case,
+    }
+
+
+def to_device(case, device):
+    import torch
+    t = lambda a: torch.as_tensor(a).to(device)
+    origin, sidx, side, lane, side_dist, lane_dist, table, counts = case
+    return (t(origin), t(sidx), tuple(map(t, side)), tuple(map(t, lane)), side_dist, lane_dist,
+            t(table), t(counts))
+
+
+def detector_bound(args):
+    """Least time (ms) of one detector_clouds call on the card, and what
+    sets it: each input read once and each output written once, against
+    OPS_PER_PAIR operations for every (ray, line) pair of this input."""
+    origin, sidx, side, lane, _, _, table, counts = args
+    E, Rs, Rl = origin.shape[0], side[0].shape[1], lane[0].shape[1]
+    c = counts.long()[sidx.long()].sum(0)
+    pairs = Rs * int(c[0]) + Rl * int(c[1])
+    bytes_moved = (table.numel() * 4 + counts.numel() * 4 + E * 4 + E * 8
+                   + 3 * 4 * E * (Rs + Rl))          # fans (dx, dy) in, clouds out
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_FP32_OPS * 1e3
+    t_ops = OPS_PER_PAIR * pairs / PEAK_FP32_OPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_case(name, origin, dx, dy, max_dist, p0, p1, valid, iters):
+def kernel_case(name, args, iters):
+    """The kernel against its plain version on one case: max abs error,
+    hits (out < 1) of each, and both times beside the bound."""
     import torch
 
     from metadrive_ped_torch.ops import ray_segment as rs
-    E, R = dx.shape
-    B = p0.shape[1]
-    out = rs.ray_segment_sweep(origin, dx, dy, max_dist, p0, p1, valid)
-    plain = rs.ray_segment_fraction(origin, None, max_dist, p0, p1, valid, dirs=(dx, dy))
+    out = rs.detector_clouds(*args)
+    plain = rs.detector_clouds_plain(*args)
     torch.cuda.synchronize()
-    err = float((out - plain).abs().max())
-    if not err <= KERNEL_TOL:
-        raise AssertionError(f"{name}: kernel differs from the plain version by {err}")
-    ms = time_ms(lambda: rs.ray_segment_sweep(origin, dx, dy, max_dist, p0, p1, valid), iters)
-    plain_ms = time_ms(lambda: rs.ray_segment_fraction(origin, None, max_dist, p0, p1, valid,
-                                                       dirs=(dx, dy)), max(2, iters // 20), warmup=1)
-    bound_ms, bound_by = ray_segment_bound(E, R, B, valid)
-    row = dict(case=name, E=E, R=R, B=B, max_abs_err=err, tol=KERNEL_TOL,
-               hits=int((out < 1).sum()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    err = max((float((a - b).abs().max()) if a.numel() else 0.0) for a, b in zip(out, plain))
+    hits = [int((a < 1).sum()) for a in out]
+    plain_hits = [int((a < 1).sum()) for a in plain]
+    if not (err <= KERNEL_TOL and hits == plain_hits):
+        raise AssertionError(f"{name}: kernel differs from the plain version by {err}; "
+                             f"hits (side, lane) {hits} against {plain_hits}")
+    ms = time_ms(lambda: rs.detector_clouds(*args), iters)
+    plain_ms = time_ms(lambda: rs.detector_clouds_plain(*args), max(2, iters // 20), warmup=1)
+    bound_ms, bound_by = detector_bound(args)
+    origin, _, side, lane, _, _, table, _ = args
+    row = dict(case=name, E=origin.shape[0], Rs=side[0].shape[1], Rl=lane[0].shape[1],
+               S=table.shape[0], Bl=table.shape[1], max_abs_err=err, tol=KERNEL_TOL,
+               hits=hits, plain_hits=plain_hits, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
     emit(phase="kernel_vs_plain", **row)
     return row
-
-
-def random_segments(E, R, B, seed):
-    import torch
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    u = lambda *shape: torch.rand(*shape, device=DEVICE, generator=g)
-    origin = (u(E, 2) - 0.5) * 10
-    ang = u(E, R) * 2 * math.pi
-    p0 = (u(E, B, 2) - 0.5) * 60
-    p1 = p0 + (u(E, B, 2) - 0.5) * 20
-    return origin, torch.cos(ang), torch.sin(ang), p0, p1, u(E, B) > 0.2
 
 
 def main():
@@ -131,7 +252,6 @@ def main():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
     from metadrive_ped_torch import MetaDriveEnv
-    from metadrive_ped_torch.constants import SEG_BROKEN_LINE, SEG_WHITE_LINE, SEG_YELLOW_LINE
     from metadrive_ped_torch.core import cuda_build
     from metadrive_ped_torch.ops import ray_segment as rs
     from metadrive_ped_torch.ops.raycast import _fan_dirs
@@ -151,26 +271,20 @@ def main():
     env = MetaDriveEnv(MAIN_PATH, device=DEVICE)
     E = env.num_envs
     env.reset(seed=0)
-    st, scene = env._state, env.scene
-    s = st.sidx.long()
-    p0, p1 = scene.seg_points(st.sidx)
-    styp, svalid = scene.seg_type[s], scene.seg_valid[s]
-    cont = ((styp == SEG_YELLOW_LINE) | (styp == SEG_WHITE_LINE)) & svalid
-    anyline = cont | ((styp == SEG_BROKEN_LINE) & svalid)
+    st = env._state
+    table, counts = env._line_table
     emit(phase="env_build", seconds=time.perf_counter() - t0, num_envs=E,
-         scenarios=env.num_scenarios, obs_dim=env.observation_dim, segments=int(p0.shape[1]))
-    main_rows = []
-    for name, R, dist, mask in (("side_detector", 160, 50.0, cont),
-                                ("lane_line_detector", 12, 20.0, anyline)):
-        dx, dy = _fan_dirs(st.ego.heading, R, offset=math.pi / 2)
-        main_rows.append(kernel_case(name, st.ego.pos, dx, dy, dist, p0, p1, mask, iters=50))
-    rows = list(main_rows)
-    # ragged: B over one shared-memory tile and not a multiple of it, B=1,
-    # and more rays than one block holds
-    for name, (E_, R_, B_) in (("ragged_E_and_B", (4097, 160, 1500)), ("B_is_1", (33, 12, 1)),
-                               ("R_over_256", (7, 300, 777))):
-        origin, dx, dy, rp0, rp1, rvalid = random_segments(E_, R_, B_, seed=E_)
-        rows.append(kernel_case(name, origin, dx, dy, 50.0, rp0, rp1, rvalid, iters=20))
+         scenarios=env.num_scenarios, obs_dim=env.observation_dim,
+         segments=int(env.scene.seg_type.shape[1]), line_table_rows=int(table.shape[1]),
+         n_cont=counts[:, 0].tolist(), n_any=counts[:, 1].tolist())
+    vc = env.config["vehicle_config"]
+    fan = lambda R: _fan_dirs(st.ego.heading, R, offset=math.pi / 2)
+    main_args = (st.ego.pos.contiguous(), st.sidx, fan(vc["side_detector"]["num_lasers"]),
+                 fan(vc["lane_line_detector"]["num_lasers"]), vc["side_detector"]["distance"],
+                 vc["lane_line_detector"]["distance"], table, counts)
+    main_row = kernel_case("main_path", main_args, iters=50)
+    rows = [main_row] + [kernel_case(name, to_device(make(), DEVICE), iters=20)
+                         for name, make in line_cases().items()]
 
     # ---- the main path at full width --------------------------------------
     act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
@@ -196,12 +310,12 @@ def main():
     emit(phase="env", num_envs=E, steps=STEPS, rate_window=f"steps {TIMED_FROM}-{STEPS}",
          seconds=seconds, env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
          obs_shape=list(obs.shape), obs_ok=obs_ok, episodes_finished=int(finished),
-         ray_segment_launches=launches, expected_launches=2 * STEPS + 2,
+         ray_segment_launches=launches, expected_launches=STEPS + 1,
          host_sync_checked_step=2, peak_memory_bytes=torch.cuda.max_memory_allocated())
     if tuple(obs.shape) != (E, env.observation_dim) or not obs_ok:
         raise AssertionError("observation out of shape or range")
-    if launches != 2 * STEPS + 2:
-        raise AssertionError(f"ray-segment kernel launched {launches} times, expected {2 * STEPS + 2}")
+    if launches != STEPS + 1:
+        raise AssertionError(f"ray-segment kernel launched {launches} times, expected {STEPS + 1}")
     if int(finished) == 0:
         raise AssertionError("no episode finished in 200 steps")
     del env, outs
@@ -230,11 +344,9 @@ def main():
         name="ray_segment", route="cuda", source="metadrive_ped_torch/csrc/ray_segment.cu",
         replaces="metadrive_ped_tpu/ops/pallas_raycast.py:72", launches=launches,
         max_abs_err=max(r["max_abs_err"] for r in rows),
-        # per env step at the main path's shapes: both launches (R=160, R=12)
-        ms=sum(r["ms"] for r in main_rows), plain_ms=sum(r["plain_ms"] for r in main_rows),
-        bound_ms=sum(r["bound_ms"] for r in main_rows),
-        bound_by=max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
-        library_ms=None,
+        # per env step at the main path's shapes: one launch for both clouds
+        ms=main_row["ms"], plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+        bound_by=main_row["bound_by"], library_ms=None,
     )]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

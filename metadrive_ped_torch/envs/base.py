@@ -24,7 +24,7 @@ import torch
 from metadrive_ped_torch.config import Config
 from metadrive_ped_torch.constants import (
     BICYCLE_REF_ACCEL, BICYCLE_REF_BRAKE, BICYCLE_REF_WHEELBASE_EFF,
-    SEG_BROKEN_LINE, SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
+    SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
     VEHICLE_CLASS_ORDER, VEHICLE_CLASSES,
 )
 from metadrive_ped_torch.core import prng
@@ -36,7 +36,9 @@ from metadrive_ped_torch.mapgen.scene import (
     OBJ_BUILDING, OBJ_CONE, OBJ_WARNING, PED_WALKER, build_scene_pack,
 )
 from metadrive_ped_torch.obs import state_obs
-from metadrive_ped_torch.ops import collision, dynamics, idm, localization, participants
+from metadrive_ped_torch.ops import (
+    collision, dynamics, idm, localization, participants, ray_segment,
+)
 from metadrive_ped_torch.ops.gather import onehot_pick, vector_lookup
 
 # ---- per-class parameter table (constants.py VEHICLE_CLASSES) -------------
@@ -308,6 +310,13 @@ class BaseVectorEnv:
         frac[N:N + O] = 1.0
         self._push_frac = torch.as_tensor(frac).to(dev)
         self._npc_timer0 = (torch.arange(N, dtype=torch.int32, device=dev) * 17) % 50
+        # the detectors' per-scenario line table, built once: no step
+        # gathers or dequantizes segments for them
+        vc = cfg["vehicle_config"]
+        self._line_table = None
+        if vc["side_detector"]["num_lasers"] > 0 or vc["lane_line_detector"]["num_lasers"] > 0:
+            self._line_table = ray_segment.build_line_table(
+                self.scene, include_broken=vc["lane_line_detector"]["num_lasers"] > 0)
 
     # ------------------------------------------------------------------ API
     @property
@@ -594,25 +603,16 @@ class BaseVectorEnv:
         vc = self.config["vehicle_config"]
         lidar_cfg = vc["lidar"]
         targets, radius = self._lidar_targets(state)
-        side_lasers = vc["side_detector"]["num_lasers"]
-        ll_lasers = vc["lane_line_detector"]["num_lasers"]
-        line_segs = None
-        if side_lasers > 0 or ll_lasers > 0:
-            scene, s = self.scene, state.sidx.long()
-            styp = scene.seg_type[s]
-            valid = scene.seg_valid[s]
-            cont = ((styp == SEG_YELLOW_LINE) | (styp == SEG_WHITE_LINE)) & valid
-            anyline = cont | ((styp == SEG_BROKEN_LINE) & valid)
-            line_segs = (*scene.seg_points(state.sidx), cont, anyline)
         sl = self._target_slices
         return state_obs.observe(
             self.scene, state.sidx, state.ego, targets, ego_long, ego_lat,
             num_lasers=lidar_cfg["num_lasers"], lidar_distance=lidar_cfg["distance"],
             num_others=lidar_cfg["num_others"], npc=state.npc,
-            side_lasers=side_lasers, side_distance=vc["side_detector"]["distance"],
-            lane_line_lasers=ll_lasers,
+            side_lasers=vc["side_detector"]["num_lasers"],
+            side_distance=vc["side_detector"]["distance"],
+            lane_line_lasers=vc["lane_line_detector"]["num_lasers"],
             lane_line_distance=vc["lane_line_detector"]["distance"],
-            line_segs=line_segs,
+            line_table=self._line_table,
             random_agent_model=self.config["random_agent_model"],
             t_radius=radius, circle_slice=slice(sl["obj"].start, sl["ped"].stop),
         )

@@ -108,7 +108,7 @@ def surrounding_vehicles_info(ego, npc, num_others, perceive_distance):
 
 def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_distance=50.0,
             num_others=0, npc=None, side_lasers=0, side_distance=50.0,
-            lane_line_lasers=0, lane_line_distance=20.0, line_segs=None,
+            lane_line_lasers=0, lane_line_distance=20.0, line_table=None,
             random_agent_model=False, t_radius=None, circle_slice=None):
     """Full observation [E, obs_dim]. ego_long/ego_lat are the current-lane
     local coordinates already computed by localization; ``targets`` =
@@ -120,8 +120,8 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
     side_lasers/lane_line_lasers > 0 switch the lateral features to detector
     clouds against the lane-line segments, matching the reference's
     SideDetector (ContinuousLaneLine mask, distance_detector.py:194) and
-    LaneLineDetector (both line masks, :209); ``line_segs`` =
-    (p0, p1, continuous_valid, any_line_valid) [E,B,...]."""
+    LaneLineDetector (both line masks, :209), both from one launch;
+    ``line_table`` = (table, counts) of `ray_segment.build_line_table`."""
     speed_kmh = ego.speed * 3.6
     f_speed = clip01((speed_kmh + 1) / (ego.params.max_speed_kmh + 1))
     f_steer = clip01((ego.steering / OBS_MAX_STEERING + 1) / 2)
@@ -142,10 +142,12 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
         pieces.append(torch.stack(
             [clip01(ego.params.length / MAX_VEHICLE_LENGTH),
              clip01(ego.params.width / MAX_VEHICLE_WIDTH)], dim=-1))
+    if side_lasers > 0 or lane_line_lasers > 0:
+        side_cloud, lane_cloud = raycast.detector_clouds(
+            ego.pos, ego.heading, sidx, (side_lasers, side_distance),
+            (lane_line_lasers, lane_line_distance), *line_table)
     if side_lasers > 0:
-        p0, p1, cont_valid, _ = line_segs
-        pieces.append(raycast.side_detector_cloud(
-            ego.pos, ego.heading, side_lasers, side_distance, p0, p1, cont_valid))
+        pieces.append(side_cloud)
     else:
         left, right = localization.boundary_distances(
             scene, sidx, ego.slot, ego.route_idx, ego.pos)
@@ -153,9 +155,7 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
             [clip01(left / TOTAL_SIDE_WIDTH), clip01(right / TOTAL_SIDE_WIDTH)], dim=-1))
     pieces.append(torch.stack([hdiff, f_speed, f_steer, f_act0, f_act1, f_yaw], dim=-1))
     if lane_line_lasers > 0:
-        p0, p1, _, any_valid = line_segs
-        pieces.append(raycast.side_detector_cloud(
-            ego.pos, ego.heading, lane_line_lasers, lane_line_distance, p0, p1, any_valid))
+        pieces.append(lane_cloud)
     else:
         pieces.append(clip01((ego_lat * 2 / MAX_LANE_WIDTH + 1) / 2)[:, None])
     ego_state = torch.cat(pieces, dim=-1)

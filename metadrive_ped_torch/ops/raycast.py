@@ -13,7 +13,6 @@ import math
 import torch
 
 from metadrive_ped_torch.ops import ray_segment
-from metadrive_ped_torch.ops.ray_segment import ray_segment_fraction  # noqa: F401 (plain version)
 
 
 def _fan_dirs(heading, num_rays, offset=0.0):
@@ -106,9 +105,16 @@ def lidar_cloud(ego_pos, ego_heading, num_rays, max_dist,
     return torch.minimum(box_frac, circ_frac)
 
 
-def side_detector_cloud(ego_pos, ego_heading, num_rays, max_dist, p0, p1, valid):
-    """SideDetector / LaneLineDetector: rays offset 90 deg fanned over the
-    circle (distance_detector.py:118-160 side variant), against 2D
-    segments. Runs the ray-segment kernel for CUDA tensors."""
-    dx, dy = _fan_dirs(ego_heading, num_rays, offset=math.pi / 2)
-    return ray_segment.ray_segment_sweep(ego_pos.contiguous(), dx, dy, max_dist, p0, p1, valid)
+def detector_clouds(ego_pos, ego_heading, sidx, side, lane, table, counts):
+    """SideDetector and LaneLineDetector clouds (distance_detector.py:
+    118-160, side variant: rays offset 90 deg fanned over the circle)
+    against the lane lines of `ray_segment.build_line_table`: the side
+    detector sees the continuous lines (:194), the lane-line detector all
+    of them (:209). ``side`` / ``lane`` = (num_rays, max_dist); a detector
+    with 0 rays gives an [E, 0] cloud. Both clouds come from one launch of
+    the ray-segment kernel for CUDA tensors."""
+    (rs, side_dist), (rl, lane_dist) = side, lane
+    none = ego_heading.new_zeros((ego_heading.shape[0], 0))
+    fan = lambda R: _fan_dirs(ego_heading, R, offset=math.pi / 2) if R > 0 else (none, none)
+    return ray_segment.detector_clouds(ego_pos.contiguous(), sidx, fan(rs), fan(rl),
+                                       side_dist, lane_dist, table, counts)

@@ -1,16 +1,33 @@
-"""The CUDA kernel on the card: it builds, agrees with its plain version,
-counts its launches, and carries the env's detector clouds. These tests
-need an NVIDIA GPU with nvcc and skip elsewhere. On the card, where JAX is
-not installed, run them without tests/conftest.py (which imports jax):
+"""The CUDA kernel on the card: it builds, agrees with its plain version hit
+for hit, counts its launches, and carries both of the env's detector clouds
+in one launch per step. These tests need an NVIDIA GPU with nvcc and skip
+elsewhere. On the card, where JAX is not installed, run them without
+tests/conftest.py (which imports jax):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
-import math
+import os
+import sys
 
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (the kernel's cases, shared with the card run)
+
 pytestmark = pytest.mark.cuda
+
+CASES = {
+    "main_path_like": lambda: chip_smoke.random_line_case(64, 16, 470, 160, 12, seed=1),
+    "ragged": lambda: chip_smoke.random_line_case(129, 7, 1500, 160, 12, seed=2),
+    "n_cont_0_n_any_1": lambda: chip_smoke.random_line_case(1024, 64, 1, 160, 12, seed=3,
+                                                            counts=[[0, 1]] * 64),
+    "Rs_300": lambda: chip_smoke.random_line_case(7, 3, 777, 300, 12, seed=4),
+    "Rs_0": lambda: chip_smoke.random_line_case(9, 2, 100, 0, 12, seed=5),
+    "Rl_0": lambda: chip_smoke.random_line_case(9, 2, 100, 160, 0, seed=6),
+    "Rl_40": lambda: chip_smoke.random_line_case(9, 2, 100, 160, 40, seed=7),
+    "adversarial": chip_smoke.adversarial_line_case,
+}
 
 
 @pytest.fixture
@@ -20,35 +37,38 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(E, R, B, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    u = lambda *s: torch.rand(*s, device="cuda", generator=g)
-    ang = u(E, R) * 2 * math.pi
-    p0 = (u(E, B, 2) - 0.5) * 60
-    return ((u(E, 2) - 0.5) * 10, torch.cos(ang), torch.sin(ang), p0,
-            p0 + (u(E, B, 2) - 0.5) * 20, u(E, B) > 0.2)
-
-
-@pytest.mark.parametrize("E,R,B", [(64, 160, 540), (33, 12, 1), (7, 300, 777), (129, 160, 1500)])
-def test_kernel_matches_plain(cuda, E, R, B):
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain(cuda, case):
     from metadrive_ped_torch.ops import ray_segment as rs
-    origin, dx, dy, p0, p1, valid = _case(E, R, B, seed=E)
+    args = chip_smoke.to_device(CASES[case](), cuda)
     before = rs.launches
-    out = rs.ray_segment_sweep(origin, dx, dy, 50.0, p0, p1, valid)
-    ref = rs.ray_segment_fraction(origin, None, 50.0, p0, p1, valid, dirs=(dx, dy))
+    out = rs.detector_clouds(*args)
+    ref = rs.detector_clouds_plain(*args)
     torch.cuda.synchronize()
     assert rs.launches == before + 1
-    assert float((out - ref).abs().max()) <= 1e-5
-    assert bool((out < 1).any())
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        if a.numel():
+            assert float((a - b).abs().max()) <= 1e-5
+            assert int((a < 1).sum()) == int((b < 1).sum())
+    assert any(bool((a < 1).any()) for a in out)
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
     from metadrive_ped_torch.ops import ray_segment as rs
-    origin, dx, dy, p0, p1, valid = _case(4, 8, 16, seed=1)
+    origin, sidx, side, lane, sd, ld, table, counts = chip_smoke.to_device(
+        chip_smoke.random_line_case(4, 2, 16, 8, 4, seed=1), cuda)
     with pytest.raises(ValueError):
-        rs.ray_segment_sweep(origin, dx, dy, 50.0, p0.double(), p1, valid)
+        rs.detector_clouds(origin, sidx, side, lane, sd, ld, table.double(), counts)
     with pytest.raises(ValueError):
-        rs.ray_segment_sweep(origin, dx.t().contiguous().t(), dy, 50.0, p0, p1, valid)
+        rs.detector_clouds(origin, sidx.long(), side, lane, sd, ld, table, counts)
+    with pytest.raises(ValueError):
+        rs.detector_clouds(origin, sidx, (side[0].t().contiguous().t(), side[1]), lane, sd, ld,
+                           table, counts)
+    with pytest.raises(ValueError):
+        rs.detector_clouds(origin, sidx, side, lane, sd, ld, table[:, :, :2].contiguous(), counts)
+    with pytest.raises(ValueError):
+        rs.detector_clouds(origin, sidx, side, lane, sd, ld, table, counts.cpu())
 
 
 def test_env_steps_through_the_kernel(cuda):
@@ -63,5 +83,5 @@ def test_env_steps_through_the_kernel(cuda):
     act = torch.tensor([[0.0, 1.0]] * 64, device="cuda")
     for _ in range(10):
         obs, *_ = env.step(act)
-    assert rs.launches == 2 * 10 + 2
+    assert rs.launches == 10 + 1
     assert bool(torch.isfinite(obs).all())

@@ -16,8 +16,12 @@ import pytest
 import torch
 from _torch_parity import jax_tree, np_tree, t, to_np
 
+import chip_smoke
 from metadrive_ped_torch import MetaDriveEnv as TorchEnv
+from metadrive_ped_torch.constants import SEG_BROKEN_LINE, SEG_WHITE_LINE, SEG_YELLOW_LINE
 from metadrive_ped_torch.core.convert import state_from_numpy, state_to_numpy
+from metadrive_ped_torch.core.structs import Scene as TorchScene
+from metadrive_ped_torch.mapgen import build_scene_pack as torch_build_pack
 from metadrive_ped_torch.obs import state_obs as t_obs
 from metadrive_ped_torch.ops import collision as t_col
 from metadrive_ped_torch.ops import dynamics as t_dyn
@@ -365,29 +369,213 @@ def test_ray_segment_fraction_against_xla_and_pallas():
 
 
 def test_ray_segment_sweep_on_cpu_is_the_plain_version():
-    origin, angles, p0, p1, valid = _segment_case(8, 5, 7, 9)
-    dx, dy = np.cos(angles), np.sin(angles)
+    """The detector-cloud entry on CPU tensors is its plain version and
+    counts no launch."""
+    args = chip_smoke.to_device(chip_smoke.random_line_case(5, 3, 9, 7, 4, seed=8), "cpu")
     before = t_rs.launches
-    a = t_rs.ray_segment_sweep(t(origin), t(dx), t(dy), 20.0, t(p0), t(p1), t(valid))
-    b = t_rs.ray_segment_fraction(t(origin), None, 20.0, t(p0), t(p1), t(valid), dirs=(t(dx), t(dy)))
-    np.testing.assert_array_equal(to_np(a), to_np(b))
+    ours, plain = t_rs.detector_clouds(*args), t_rs.detector_clouds_plain(*args)
+    for a, b in zip(ours, plain):
+        np.testing.assert_array_equal(to_np(a), to_np(b))
     assert t_rs.launches == before
 
 
-def test_side_detector_cloud(traffic_world):
-    w = traffic_world
+def _jax_line_masks(jsc, sidx_j):
+    typ, valid = jsc.seg_type[sidx_j], jsc.seg_valid[sidx_j]
+    cont = ((typ == SEG_YELLOW_LINE) | (typ == SEG_WHITE_LINE)) & valid
+    return cont, cont | ((typ == SEG_BROKEN_LINE) & valid)
+
+
+def _detector_clouds_vs_jax(w, Rs, Rl):
+    """The port's detector clouds over its line table against JAX's
+    side_detector_cloud over the per-env segments and masks."""
     jsc, tsc = w.jscene, w.tscene
-    sidx_j, sidx_t = w.jstate.sidx, w.tstate.sidx
+    sidx_j = w.jstate.sidx
     jp0, jp1 = jsc.seg_points(sidx_j)
-    tp0, tp1 = tsc.seg_points(sidx_t)
-    close(tp0, jp0)
-    valid_j = jsc.seg_valid[sidx_j]
-    valid_t = tsc.seg_valid[sidx_t.long()]
-    for R, dist in ((16, 50.0), (8, 20.0)):
-        ours = t_ray.side_detector_cloud(w.tstate.ego.pos, w.tstate.ego.heading, R, dist, tp0, tp1, valid_t)
-        ref = j_side_cloud(w.jstate.ego.pos, w.jstate.ego.heading, R, dist, jp0, jp1, valid_j)
-        close(ours, ref)
-        assert (to_np(ours) < 1.0).any()
+    cont, anyline = _jax_line_masks(jsc, sidx_j)
+    table, counts = t_rs.build_line_table(tsc, include_broken=True)
+    ours = t_ray.detector_clouds(w.tstate.ego.pos, w.tstate.ego.heading, w.tstate.sidx,
+                                 (Rs, 50.0), (Rl, 20.0), table, counts)
+    for cloud, R, dist, mask in zip(ours, (Rs, Rl), (50.0, 20.0), (cont, anyline)):
+        assert tuple(cloud.shape) == (w.tstate.sidx.shape[0], R)
+        if R:
+            close(cloud, j_side_cloud(w.jstate.ego.pos, w.jstate.ego.heading, R, dist, jp0, jp1, mask))
+            assert (to_np(cloud) < 1.0).any()
+    return ours
+
+
+def test_side_detector_cloud(traffic_world):
+    """Both detector clouds of the main path's wiring (side 16 rays at 50 m
+    over the continuous lines, lane-line 8 at 20 m over all lines)."""
+    tp0, _ = traffic_world.tscene.seg_points(traffic_world.tstate.sidx)
+    close(tp0, traffic_world.jscene.seg_points(traffic_world.jstate.sidx)[0])
+    _detector_clouds_vs_jax(traffic_world, 16, 8)
+
+
+@pytest.mark.parametrize("Rs,Rl", [(0, 8), (16, 0)])
+def test_detector_clouds_one_detector_off(traffic_world, Rs, Rl):
+    _detector_clouds_vs_jax(traffic_world, Rs, Rl)
+
+
+def _line_table_scene(name):
+    if name == "map3_broken_lines":
+        cfg = dict(map_config=dict(config=3, lane_width=3.5, lane_num=3, exit_length=50.0),
+                   traffic_density=0.05, include_broken_line_segs=True)
+        return TorchScene.from_pack(torch_build_pack([5, 6], cfg), "cpu")
+    return get_world(name).tscene
+
+
+@pytest.mark.parametrize("name,include_broken", [("traffic", True), ("traffic", False),
+                                                 ("cylinders", True), ("map3_broken_lines", True)])
+def test_build_line_table(name, include_broken):
+    """The table's rows are bit for bit the (a, s) of `seg_points` of the
+    valid continuous lines, then the valid broken lines, in pack order;
+    counts are (n_cont, n_any) and the padding is zero."""
+    scene = _line_table_scene(name)
+    table, counts = t_rs.build_line_table(scene, include_broken)
+    S = scene.num_scenarios
+    p0, p1 = (to_np(a) for a in scene.seg_points(torch.arange(S)))
+    typ, valid = to_np(scene.seg_type), to_np(scene.seg_valid)
+    table, counts = to_np(table), to_np(counts)
+    assert table.dtype == np.float32 and counts.dtype == np.int32
+    n_any_all = []
+    for si in range(S):
+        cont = np.flatnonzero(valid[si] & np.isin(typ[si], (SEG_YELLOW_LINE, SEG_WHITE_LINE)))
+        broken = np.flatnonzero(valid[si] & (typ[si] == SEG_BROKEN_LINE)) if include_broken \
+            else np.zeros(0, np.int64)
+        idx = np.concatenate([cont, broken])
+        expect = np.concatenate([p0[si, idx], p1[si, idx] - p0[si, idx]], axis=-1)
+        np.testing.assert_array_equal(counts[si], [len(cont), len(idx)])
+        np.testing.assert_array_equal(table[si, :len(idx)], expect)
+        assert (table[si, len(idx):] == 0).all()
+        n_any_all.append(len(idx))
+    assert table.shape == (S, max(1, max(n_any_all)), 4)
+    assert (counts[:, 0] > 0).all()
+    if name != "cylinders" and include_broken:
+        assert (counts[:, 1] > counts[:, 0]).any()      # broken lines are in the table
+
+
+def _jax_table_clouds(args):
+    """JAX's ray_segment_fraction over per-env p0 = a, p1 = a + s of a line
+    table case (exact where the case's s = fl(p1 - p0))."""
+    origin, sidx, side, lane, side_dist, lane_dist, table, counts = args
+    rows, c = table[sidx], counts[sidx]
+    j = np.arange(table.shape[1])[None, :]
+    p0 = rows[..., :2]
+    p1 = (p0 + rows[..., 2:]).astype(np.float32)
+    np.testing.assert_array_equal(p1 - p0, rows[..., 2:])
+    out = []
+    for (dx, dy), dist, mask in ((side, side_dist, j < c[:, :1]), (lane, lane_dist, j < c[:, 1:])):
+        out.append(np.asarray(j_ray.ray_segment_fraction(
+            jnp.asarray(origin), None, dist, jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(mask),
+            dirs=(jnp.asarray(dx), jnp.asarray(dy)))) if dx.shape[1] else np.zeros(dx.shape, np.float32))
+    return out
+
+
+LINE_CASES_CPU = {
+    # the card's cases at CPU size: rows over one shared-memory tile (512),
+    # n_cont = 0, Rs = 0, Rl = 0, Rl over one warp's 16, and exact
+    # boundary geometry at full size. XLA on the CPU flushes subnormals to
+    # zero, so the envs with a subnormal offset are held against the plain
+    # version on the card and by test_kernel_cull_is_exact, not against JAX.
+    "ragged": lambda: chip_smoke.random_line_case(9, 3, 600, 20, 5, seed=11),
+    "n_cont_0_n_any_1": lambda: chip_smoke.random_line_case(256, 64, 1, 24, 12, seed=12,
+                                                            counts=[[0, 1]] * 64),
+    "Rs_0": lambda: chip_smoke.random_line_case(6, 2, 70, 0, 12, seed=13),
+    "Rl_0": lambda: chip_smoke.random_line_case(6, 2, 70, 24, 0, seed=14),
+    "Rl_40": lambda: chip_smoke.random_line_case(6, 2, 70, 24, 40, seed=15),
+    "adversarial": lambda: chip_smoke.adversarial_line_case(subnormal=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LINE_CASES_CPU))
+def test_detector_clouds_cases_against_jax(case):
+    """The plain detector clouds over a line table match JAX's
+    ray_segment_fraction over the same segments, hit for hit."""
+    args = LINE_CASES_CPU[case]()
+    ours = t_rs.detector_clouds(*chip_smoke.to_device(args, "cpu"))
+    for cloud, ref in zip(ours, _jax_table_clouds(args)):
+        close(cloud, ref)
+        np.testing.assert_array_equal(to_np(cloud) < 1, ref < 1)
+
+
+def _kernel_pair_model(dx, dy, ax, ay, sx, sy, ox, oy):
+    """numpy float32 model of csrc/ray_segment.cu::pair, each operation
+    rounded as the kernel rounds it: (kept by the cull, the kernel's hit,
+    the plain version's hit)."""
+    f = np.float32
+    with np.errstate(all="ignore"):
+        rel_x, rel_y = ax - ox, ay - oy
+        nt = rel_x * sy - rel_y * sx
+        denom = dx * sy - dy * sx
+        g = np.where(np.abs(denom) < f(1e-9), f(1e-9), denom)
+        nu = rel_x * dy - rel_y * dx
+        m = np.where(np.signbit(g), f(-2.0 ** 126), f(2.0 ** 126))
+        ag, num = np.maximum(np.abs(denom), f(1e-9)), nu * m
+        assert (ag == np.abs(g)).all()
+        kept = (nt * m > -ag) & (num > -ag) & (np.abs(nu) <= ag * f(1 + 2.0 ** -22))
+        t, u = nt / g, nu / g
+        plain = (t >= 0) & (u >= 0) & (u <= 1)
+        sure_u = (num >= 0) & (np.abs(nu) <= ag * f(1 - 2.0 ** -22))
+        kernel = kept & np.where(sure_u, t >= 0, plain)
+    return kept, kernel, plain
+
+
+def _pairs_of(args):
+    """Every (ray, valid row) pair of a line-table case, flattened."""
+    origin, sidx, side, lane, _, _, table, counts = args
+    out = []
+    for (dx, dy), col in ((side, 0), (lane, 1)):
+        rows, n = table[sidx], counts[sidx, col]
+        valid = np.arange(table.shape[1])[None, :] < n[:, None]           # [E,B]
+        e, b = np.nonzero(valid)
+        R = dx.shape[1]
+        e, b, r = np.repeat(e, R), np.repeat(b, R), np.tile(np.arange(R), len(e))
+        out.append((dx[e, r], dy[e, r], *rows[e, b].T, origin[e, 0], origin[e, 1]))
+    return [np.concatenate(parts) for parts in zip(*out)]
+
+
+def _near_boundary_pairs(n, seed):
+    """Rays aimed at segment ends (u within an ulp of 0 or 1), origins a
+    subnormal step from a segment start (t, u near +-0) and rays nearly
+    parallel to the segment (|d x s| near the 1e-9 guard)."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    o = f32(rng.uniform(-20, 20, (n, 2)))
+    a = f32(o + rng.uniform(-30, 30, (n, 2)))
+    s = f32(rng.uniform(-10, 10, (n, 2)))
+    target = np.where(rng.rand(n, 1) < 0.5, a, f32(a + s))
+    d = f32(target - o)
+    d = f32(d / np.linalg.norm(d, axis=1, keepdims=True))
+    pairs = [(d[:, 0], d[:, 1], a[:, 0], a[:, 1], s[:, 0], s[:, 1], o[:, 0], o[:, 1])]
+    tiny = f32(rng.randint(-3, 4, (n, 2)) * np.float32(1e-45))
+    pairs.append((d[:, 0], d[:, 1], tiny[:, 0], tiny[:, 1], s[:, 0], s[:, 1], 0 * o[:, 0], 0 * o[:, 1]))
+    par = f32(d * rng.choice([-3.0, 1.0, 4.0], (n, 1))
+              + f32(rng.choice([-1, 1], (n, 1)) * rng.choice([3e-10, 1e-9, 2e-9], (n, 1)))
+              * f32(np.stack([-d[:, 1], d[:, 0]], 1)))
+    pairs.append((d[:, 0], d[:, 1], a[:, 0], a[:, 1], par[:, 0], par[:, 1], o[:, 0], o[:, 1]))
+    return [np.concatenate(parts).astype(np.float32) for parts in zip(*pairs)]
+
+
+@pytest.mark.parametrize("source", ["random", "near_boundary", "adversarial", "main_path_like"])
+def test_kernel_cull_is_exact(source):
+    """The kernel's cull and hit test, modelled in numpy float32: a culled
+    pair is always a miss of the plain version, and the kernel's hit is the
+    plain version's hit on every pair, ties at u = 0, u = 1, t = 0 and the
+    1e-9 guard included. On random geometry the cull removes most pairs."""
+    if source == "near_boundary":
+        pairs = _near_boundary_pairs(20000, seed=21)
+    elif source == "adversarial":
+        pairs = _pairs_of(chip_smoke.adversarial_line_case())
+    else:
+        pairs = _pairs_of(chip_smoke.random_line_case(
+            64, 4, 300, 160, 12, seed=22 if source == "random" else 23,
+            counts=None if source == "random" else [[100, 300]] * 4))
+    kept, kernel, plain = _kernel_pair_model(*pairs)
+    assert not (plain & ~kept).any()
+    np.testing.assert_array_equal(kernel, plain)
+    assert plain.any()
+    if source in ("random", "main_path_like"):
+        assert kept.mean() < 0.25
 
 
 # ---------------------------------------------------------- collision.py

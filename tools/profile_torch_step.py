@@ -61,9 +61,7 @@ def main():
         return 1
     from chip_smoke import MAIN_PATH
     from metadrive_ped_torch import MetaDriveEnv
-    from metadrive_ped_torch.constants import (
-        SEG_BROKEN_LINE, SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
-    )
+    from metadrive_ped_torch.constants import SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE
     from metadrive_ped_torch.ops import collision, dynamics, idm, localization, raycast
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -94,10 +92,8 @@ def main():
     vc = cfg["vehicle_config"]
     ego, s = st.ego, st.sidx.long()
     targets, radius = env._lidar_targets(st)
-    p0, p1 = scene.seg_points(st.sidx)
     styp, svalid = scene.seg_type[s], scene.seg_valid[s]
-    cont = ((styp == SEG_YELLOW_LINE) | (styp == SEG_WHITE_LINE)) & svalid
-    anyline = cont | ((styp == SEG_BROKEN_LINE) & svalid)
+    side, lane = vc["side_detector"], vc["lane_line_detector"]
     zeros = torch.zeros(E, device="cuda")
     stages = {
         "ego dynamics": lambda: dynamics.step_vehicle(
@@ -116,9 +112,9 @@ def main():
         "lidar cloud (240 rays x OBBs)": lambda: raycast.lidar_cloud(
             ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"], *targets,
             radius=radius),
-        "side + lane-line clouds (kernel x2)": lambda: (
-            raycast.side_detector_cloud(ego.pos, ego.heading, 160, 50.0, p0, p1, cont),
-            raycast.side_detector_cloud(ego.pos, ego.heading, 12, 20.0, p0, p1, anyline)),
+        "side + lane-line clouds (fans + one kernel launch)": lambda: raycast.detector_clouds(
+            ego.pos, ego.heading, st.sidx, (side["num_lasers"], side["distance"]),
+            (lane["num_lasers"], lane["distance"]), *env._line_table),
         "observation (whole)": lambda: env._observe(st, zeros, zeros),
         "auto-reset spawn (threefry + gathers)": lambda: env._spawn(st.rng, st.sidx),
         "reward/cost/done": lambda: env.done_function(st, zeros > 0, zeros > 0),
