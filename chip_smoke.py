@@ -14,8 +14,9 @@ needs one CUDA device, and prints one JSON line per phase:
                  and on the cases of `line_cases` (ragged E, S and table
                  rows, n_cont = 0, Rs = 300, Rs = 0, Rl = 0, Rl = 40, exact
                  boundary geometry); max_abs_err must be <= 1e-5 and the
-                 hits (out < 1) of both equal; kernel, plain and
-                 roofline-bound times
+                 hits (out < 1) of both equal; kernel (CUDA events over a
+                 loop of calls, and the profiler's device time of one
+                 launch), plain and roofline-bound times
 4. env           the main path at full width: the `pg` bench protocol
                  (bench.py:28-32, 8192 envs) with lidar 240, side detector
                  160 and lane-line detector 12 lasers, full throttle for 200
@@ -24,9 +25,31 @@ needs one CUDA device, and prints one JSON line per phase:
                  step under torch.cuda.set_sync_debug_mode("error")
 5. card_vs_cpu   32 envs for 20 steps on the card and on the CPU: obs and
                  reward within 1e-4, discrete flags equal
+6. scenario_replay  ScenarioEnv at the reference's replay-FPS protocol
+                 (bench.py:57-70, 4096 envs): 16 synthetic Waymo-scale
+                 scenarios, replayed ego, lidar 120, side detector 160
+                 (lane-line 12, which ScenarioEnv ignores); the kernel
+                 against its plain version on the env's line table (no
+                 continuous line on these maps: n_cont = 0), then 200 steps
+                 through `rollout`, the first under
+                 torch.cuda.set_sync_debug_mode("error"): env-steps/s over
+                 steps 100-200, obs checks, launches (steps + 1)
+7. scenario_reactive  bench.py:48-56: the same scenarios at 4096 envs with
+                 reactive IDM traffic and the default sensors (side 12,
+                 lidar 120); as 6, plus episodes finished and the largest
+                 reactive arc position
+8. scenario_lines  the scenario_recorded protocol (bench.py:71-82) with the
+                 side detector at 160: 100 steps of the PG env (16 envs,
+                 map=3) exported on the card, replayed at 1024 envs with
+                 reactive traffic for 200 steps (episodes truncate at 100 and
+                 auto-reset); the kernel against its plain version on the
+                 env's table of real lines first (side hits must be > 0)
+9. scenario_card_vs_cpu  32 envs for 20 steps of 8 on the card and on the
+                 CPU: obs and reward within 1e-4, every bool flag equal
 
-then the kernels line, the card's name and power limit, and last
-{"ok": true, "device": {...}}. Any failed phase raises and exits non-zero.
+then the kernels line (launches summed over the env phases 4, 6, 7 and 8),
+the card's name and power limit, and last {"ok": true, "device": {...}}.
+Any failed phase raises and exits non-zero.
 """
 import json
 import math
@@ -43,6 +66,19 @@ MAIN_PATH = dict(num_envs=8192, map=3, num_scenarios=16, traffic_density=0.05, h
                  vehicle_config=dict(lidar=dict(num_lasers=240),
                                      side_detector=dict(num_lasers=160),
                                      lane_line_detector=dict(num_lasers=12)))
+# The scenario phases: bench.py's `scenario_replay` and `scenario` families
+# (4096 envs, bench.py:345-346) on 16 synthetic Waymo-scale scenarios, and
+# its `scenario_recorded` protocol (1024 envs) on 16 PG exports.
+SCENARIO_REPLAY = dict(num_envs=4096, replay_ego=True,
+                       vehicle_config=dict(lidar=dict(num_lasers=120),
+                                           side_detector=dict(num_lasers=160),
+                                           lane_line_detector=dict(num_lasers=12)))
+SCENARIO_REACTIVE = dict(num_envs=4096, reactive_traffic=True)
+SCENARIO_LINES = dict(num_envs=1024, reactive_traffic=True,
+                      vehicle_config=dict(side_detector=dict(num_lasers=160)))
+LINES_SOURCE = dict(num_envs=16, num_scenarios=16, map=3, traffic_density=0.1)
+SYNTHETIC_SCENARIOS = 16
+EXPORT_STEPS = 100
 DEVICE = "cuda"
 STEPS = 200
 TIMED_FROM = 100
@@ -204,6 +240,25 @@ def to_device(case, device):
             t(table), t(counts))
 
 
+def kernel_device_ms(fn, iters):
+    """Device time (ms) of one launch of the detector-cloud kernel, from
+    torch.profiler's CUDA kernel records over ``iters`` calls of fn(). Where
+    a launch takes less device time than its wrapper takes of host time,
+    `time_ms` measures the wrapper; this does not. None if the profiler saw
+    no launch of the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    records = [e for e in prof.key_averages() if "detector_clouds_kernel" in e.key]
+    count = sum(e.count for e in records)
+    return sum(e.self_device_time_total for e in records) / 1e3 / count if count else None
+
+
 def detector_bound(args):
     """Least time (ms) of one detector_clouds call on the card, and what
     sets it: each input read once and each output written once, against
@@ -235,15 +290,103 @@ def kernel_case(name, args, iters):
         raise AssertionError(f"{name}: kernel differs from the plain version by {err}; "
                              f"hits (side, lane) {hits} against {plain_hits}")
     ms = time_ms(lambda: rs.detector_clouds(*args), iters)
+    device_ms = kernel_device_ms(lambda: rs.detector_clouds(*args), iters)
     plain_ms = time_ms(lambda: rs.detector_clouds_plain(*args), max(2, iters // 20), warmup=1)
     bound_ms, bound_by = detector_bound(args)
     origin, _, side, lane, _, _, table, _ = args
     row = dict(case=name, E=origin.shape[0], Rs=side[0].shape[1], Rl=lane[0].shape[1],
                S=table.shape[0], Bl=table.shape[1], max_abs_err=err, tol=KERNEL_TOL,
-               hits=hits, plain_hits=plain_hits, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               hits=hits, plain_hits=plain_hits, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
     emit(phase="kernel_vs_plain", **row)
     return row
+
+
+def scenario_kernel_args(env):
+    """The detector_clouds arguments of a ScenarioEnv's side detector at the
+    env's current state: its fan, no lane-line rays, its line table."""
+    from metadrive_ped_torch.ops.raycast import _fan_dirs
+    st = env._state
+    side = env.config["vehicle_config"]["side_detector"]
+    none = st.ego.heading.new_zeros((env.num_envs, 0))
+    return (st.ego.pos.contiguous(), st.sidx,
+            _fan_dirs(st.ego.heading, side["num_lasers"], offset=math.pi / 2), (none, none),
+            side["distance"], side["distance"], *env._line_table)
+
+
+def drive_scenario(phase, env, card):
+    """Reset and STEPS full-throttle steps of a ScenarioEnv through
+    `rollout`: the first step under set_sync_debug_mode("error"), the rate
+    over steps TIMED_FROM-STEPS. Checks the obs, one kernel launch per step
+    and one at reset, and that an episode finished; returns the phase's
+    line."""
+    import torch
+
+    from metadrive_ped_torch.ops import ray_segment as rs
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    collect = ("terminated", "truncated")
+    torch.cuda.reset_peak_memory_stats()
+    rs.launches = 0
+    env.reset(seed=0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, _ = env.rollout(1, actions=act, collect=collect)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    warm, _ = env.rollout(TIMED_FROM - 1, actions=act, collect=collect)
+    npc_long = env._state.npc_long.max()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = env.rollout(STEPS - TIMED_FROM, actions=act, collect=collect)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = rs.launches
+    finished = sum(int((o["terminated"] | o["truncated"]).sum()) for o in (first, warm, timed))
+    obs = env._last_obs
+    obs_ok = bool(torch.isfinite(obs).all()) and bool(((obs >= 0) & (obs <= 1)).all())
+    table, counts = env._line_table
+    row = dict(phase=phase, num_envs=E, scenarios=env.num_scenarios, steps=STEPS,
+           rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
+           env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
+           obs_shape=list(obs.shape), obs_ok=obs_ok, episodes_finished=finished,
+           n_cont=counts[:, 0].tolist(), line_table_rows=int(table.shape[1]),
+           ray_segment_launches=launches, expected_launches=STEPS + 1, host_sync_checked_step=1,
+           npc_long_max=float(torch.maximum(npc_long, env._state.npc_long.max())),
+           peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**row)
+    if tuple(obs.shape) != (E, env.observation_dim) or not obs_ok:
+        raise AssertionError(f"{phase}: observation out of shape or range")
+    if launches != STEPS + 1:
+        raise AssertionError(f"{phase}: ray-segment kernel launched {launches} times, "
+                             f"expected {STEPS + 1}")
+    if finished == 0:
+        raise AssertionError(f"{phase}: no episode finished in {STEPS} steps")
+    return row
+
+
+def card_vs_cpu(make_env, cfg, steps=20):
+    """The same env config on the card and on the CPU, stepped at full
+    throttle: (obs max abs difference, reward max abs difference, bool
+    flags that differ)."""
+    import torch
+    gpu, cpu = make_env(cfg, device=DEVICE), make_env(cfg, device="cpu")
+    E = cfg["num_envs"]
+    obs_gap = lambda a, b: float((a.cpu() - b).abs().max())
+    og, _ = gpu.reset(seed=0)
+    oc, _ = cpu.reset(seed=0)
+    obs_err = obs_gap(og, oc)
+    rew_err, flag_mismatches = 0.0, 0
+    for _ in range(steps):
+        og, rg, tg, trg, ig = gpu.step(torch.tensor([[0.0, 1.0]] * E, device=DEVICE))
+        oc, rc, tc, trc, ic = cpu.step(torch.tensor([[0.0, 1.0]] * E))
+        obs_err = max(obs_err, obs_gap(og, oc))
+        rew_err = max(rew_err, float((rg.cpu() - rc).abs().max()))
+        flags = [(tg, tc), (trg, trc)] + [(ig[k], ic[k]) for k in ic
+                                          if torch.is_tensor(ic[k]) and ic[k].dtype == torch.bool]
+        flag_mismatches += sum(int((a.cpu() != b).sum()) for a, b in flags)
+    return obs_err, rew_err, flag_mismatches
 
 
 def main():
@@ -321,28 +464,70 @@ def main():
     del env, outs
 
     # ---- the card against the CPU -----------------------------------------
-    cfg = dict(MAIN_PATH, num_envs=32)
-    gpu, cpu = MetaDriveEnv(cfg, device=DEVICE), MetaDriveEnv(cfg, device="cpu")
-    og, _ = gpu.reset(seed=0)
-    oc, _ = cpu.reset(seed=0)
-    obs_err = float((og.cpu() - oc).abs().max())
-    rew_err, flag_mismatches = 0.0, 0
-    for _ in range(20):
-        og, rg, tg, trg, ig = gpu.step(torch.tensor([[0.0, 1.0]] * 32, device=DEVICE))
-        oc, rc, tc, trc, ic = cpu.step(torch.tensor([[0.0, 1.0]] * 32))
-        obs_err = max(obs_err, float((og.cpu() - oc).abs().max()))
-        rew_err = max(rew_err, float((rg.cpu() - rc).abs().max()))
-        flags = [(tg, tc), (trg, trc)] + [(ig[k], ic[k]) for k in ic if ic[k].dtype == torch.bool]
-        flag_mismatches += sum(int((a.cpu() != b).sum()) for a, b in flags)
+    obs_err, rew_err, flag_mismatches = card_vs_cpu(MetaDriveEnv, dict(MAIN_PATH, num_envs=32))
     emit(phase="card_vs_cpu", num_envs=32, steps=20, obs_max_abs_err=obs_err,
          reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
     if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
         raise AssertionError("the card and the CPU disagree")
 
+    # ---- the scenario path ------------------------------------------------
+    from metadrive_ped_torch import ScenarioEnv
+    from metadrive_ped_torch.scenario import export_scenarios
+    from metadrive_ped_torch.scenario.synthetic import synthetic_waymo_sd
+    t0 = time.perf_counter()
+    synthetic = [synthetic_waymo_sd(seed) for seed in range(SYNTHETIC_SCENARIOS)]
+    env = ScenarioEnv(dict(SCENARIO_REPLAY, scenario_data=synthetic), device=DEVICE)
+    emit(phase="scenario_build", source="synthetic", seconds=time.perf_counter() - t0,
+         scenarios=env.num_scenarios, tracks=int(env.scene.trk_pos.shape[1]),
+         horizon=int(env.scene.trk_pos.shape[2]), lanes=int(env.scene.lane_pts.shape[1]),
+         reactive_slots=int(env.scene.trk_unpts.shape[1]),
+         route_points=int(env.scene.trk_upath_q.shape[2]),
+         segments=int(env.scene.seg_type.shape[1]), obs_dim=env.observation_dim)
+    env.reset(seed=0)
+    rows.append(kernel_case("scenario_replay", scenario_kernel_args(env), iters=20))
+    phase_launches = dict(env=launches)
+    phase_launches["scenario_replay"] = drive_scenario(
+        "scenario_replay", env, card)["ray_segment_launches"]
+    del env
+    env = ScenarioEnv(dict(SCENARIO_REACTIVE, scenario_data=synthetic), device=DEVICE)
+    row = drive_scenario("scenario_reactive", env, card)
+    phase_launches["scenario_reactive"] = row["ray_segment_launches"]
+    if not row["npc_long_max"] > 0:
+        raise AssertionError("scenario_reactive: no reactive car moved along its route")
+    del env
+
+    t0 = time.perf_counter()
+    src = MetaDriveEnv(LINES_SOURCE, device=DEVICE)
+    src.reset(seed=0)
+    full = torch.tensor([0.0, 1.0], device=DEVICE).expand(src.num_envs, 2).contiguous()
+    exported = list(export_scenarios(src, EXPORT_STEPS, actions=full).values())
+    del src
+    env = ScenarioEnv(dict(SCENARIO_LINES, scenario_data=exported), device=DEVICE)
+    emit(phase="scenario_build", source="pg_export", seconds=time.perf_counter() - t0,
+         scenarios=env.num_scenarios, tracks=int(env.scene.trk_pos.shape[1]),
+         horizon=int(env.scene.trk_pos.shape[2]), lanes=int(env.scene.lane_pts.shape[1]),
+         segments=int(env.scene.seg_type.shape[1]), obs_dim=env.observation_dim)
+    env.reset(seed=0)
+    lines_row = kernel_case("scenario_lines", scenario_kernel_args(env), iters=20)
+    if lines_row["hits"][0] == 0:
+        raise AssertionError("scenario_lines: the side detector saw no line")
+    rows.append(lines_row)
+    phase_launches["scenario_lines"] = drive_scenario(
+        "scenario_lines", env, card)["ray_segment_launches"]
+    del env
+
+    obs_err, rew_err, flag_mismatches = card_vs_cpu(
+        ScenarioEnv, dict(SCENARIO_LINES, num_envs=32, scenario_data=exported))
+    emit(phase="scenario_card_vs_cpu", num_envs=32, steps=20, obs_max_abs_err=obs_err,
+         reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
+    if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
+        raise AssertionError("scenario: the card and the CPU disagree")
+
     # ---- the kernels line ------------------------------------------------
     print(json.dumps({"kernels": [dict(
         name="ray_segment", route="cuda", source="metadrive_ped_torch/csrc/ray_segment.cu",
-        replaces="metadrive_ped_tpu/ops/pallas_raycast.py:72", launches=launches,
+        replaces="metadrive_ped_tpu/ops/pallas_raycast.py:72",
+        launches=sum(phase_launches.values()),
         max_abs_err=max(r["max_abs_err"] for r in rows),
         # per env step at the main path's shapes: one launch for both clouds
         ms=main_row["ms"], plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],

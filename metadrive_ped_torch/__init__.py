@@ -4,7 +4,8 @@ Same design as the JAX package: all per-object state lives in dataclasses
 of tensors batched over an env axis ``[E, ...]`` on one device, and one
 ``step`` advances every environment in lockstep. Maps are compiled on the
 host (numpy) into fixed-size scene packs. The detector clouds run on a
-hand-written CUDA kernel (csrc/ray_segment.cu) on the GPU.
+hand-written CUDA kernel (csrc/ray_segment.cu) on the GPU. `ScenarioEnv`
+replays logged ScenarioDescriptions (scenario/).
 
     >>> from metadrive_ped_torch import MetaDriveEnv
     >>> env = MetaDriveEnv(dict(num_envs=1024, map="SCS"), device="cuda")
@@ -12,5 +13,6 @@ hand-written CUDA kernel (csrc/ray_segment.cu) on the GPU.
     >>> obs, reward, terminated, truncated, info = env.step(actions)
 """
 from metadrive_ped_torch.envs.metadrive_env import MetaDriveEnv
+from metadrive_ped_torch.envs.scenario_env import ScenarioEnv
 
-__all__ = ["MetaDriveEnv"]
+__all__ = ["MetaDriveEnv", "ScenarioEnv"]

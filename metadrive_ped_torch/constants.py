@@ -100,6 +100,10 @@ BICYCLE_REF_WHEELBASE_EFF = 4.0
 # used *only* for normalizing the steering observation in state_obs.py:114).
 OBS_MAX_STEERING = 60.0
 
+# TrajectoryIDM cars of the scenario path refresh their acceleration in
+# staggered act batches (scenario_traffic_manager.py:27)
+IDM_ACT_BATCH_SIZE = 5
+
 MAX_LENGTH = 10.0  # reference: BaseVehicle.MAX_LENGTH (obs normalization)
 MAX_WIDTH = 2.5  # reference: BaseVehicle.MAX_WIDTH
 

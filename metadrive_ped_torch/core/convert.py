@@ -1,8 +1,9 @@
 """Carry scenes and states into the port from host (numpy) data.
 
 `scene_from_pack` takes a compiled scene pack; `state_from_numpy` takes a
-`SimState` written out as nested dicts of numpy arrays, keyed by the field
-names of `SimState` and its children. Together they let another
+state (`SimState`, or `ScenarioSimState` of the scenario path) written out
+as nested dicts of numpy arrays, keyed by the field names of the state and
+its children. Together they let another
 implementation hand its scene and state over, so that both step from the
 same state.
 """
@@ -37,10 +38,10 @@ def _build(cls, tree, device):
     })
 
 
-def state_from_numpy(tree, device):
-    """`SimState` from nested dicts of numpy arrays (uint32 keys become
-    int64)."""
-    return _build(SimState, tree, device)
+def state_from_numpy(tree, device, cls=SimState):
+    """A state of class ``cls`` from nested dicts of numpy arrays (uint32
+    keys become int64)."""
+    return _build(cls, tree, device)
 
 
 def state_to_numpy(state):

@@ -47,8 +47,37 @@ def _device_array(a, device):
     return torch.as_tensor(a).to(device)
 
 
+def quantize_segments(arrays, p0, p1, origin, span):
+    """int16 boundary segments into ``arrays``: offsets of p0/p1 [S, B, 2]
+    from the per-scene ``origin`` [S, 2] at seg_scale = max(0.025,
+    span / 32000) m/unit, rounded on the host and clipped (not wrapped) so
+    that out-of-extent padding rows cannot alias onto real coordinates;
+    consumers also mask with seg_valid."""
+    scale = np.maximum(0.025, span / 32000.0).astype(np.float32)
+    quant = lambda p: np.clip(np.round(
+        (p - origin[:, None, :]) / scale[:, None, None]
+    ), -32767, 32767).astype(np.int16)
+    arrays["seg_p0_q"] = quant(p0)
+    arrays["seg_p1_q"] = quant(p1)
+    arrays["seg_origin"] = origin.astype(np.float32)
+    arrays["seg_scale"] = scale
+
+
+class _SegmentScene(_Tree):
+    """A scene holding int16 boundary segments (`quantize_segments`)."""
+
+    def seg_points(self, sidx):
+        """Dequantized per-env segment endpoints (p0 [E,B,2], p1 [E,B,2])."""
+        s = sidx.long()
+        origin = self.seg_origin[s][:, None, :]
+        scale = self.seg_scale[s][:, None, None]
+        p0 = origin + self.seg_p0_q[s].float() * scale
+        p1 = origin + self.seg_p1_q[s].float() * scale
+        return p0, p1
+
+
 @dataclasses.dataclass
-class Scene(_Tree):
+class Scene(_SegmentScene):
     """Stacked per-scenario arrays ``[S, ...]`` (see mapgen/scene.py)."""
 
     lane_kind: torch.Tensor
@@ -186,16 +215,7 @@ class Scene(_Tree):
         else:
             origin = np.zeros((p0.shape[0], 2), np.float32)
             span = np.zeros(p0.shape[0], np.float32)
-        scale = np.maximum(0.025, span / 32000.0).astype(np.float32)
-        # clip (don't wrap) so out-of-extent padding rows can't alias onto
-        # real coordinates; consumers also mask with seg_valid
-        quant = lambda p: np.clip(np.round(
-            (p - origin[:, None, :]) / scale[:, None, None]
-        ), -32767, 32767).astype(np.int16)
-        arrays["seg_p0_q"] = quant(p0)
-        arrays["seg_p1_q"] = quant(p1)
-        arrays["seg_origin"] = origin.astype(np.float32)
-        arrays["seg_scale"] = scale
+        quantize_segments(arrays, p0, p1, origin, span)
 
         # host-side spawn poses (numpy twin of lane_geom.position /
         # heading_theta_at at lateral 0)
@@ -224,14 +244,6 @@ class Scene(_Tree):
         arrays["slot_pos"], arrays["slot_heading"] = lane_pose(
             pack["slot_lane"], pack["slot_long"])
         return cls(**{k: _device_array(v, device) for k, v in arrays.items()})
-
-    def seg_points(self, sidx):
-        """Dequantized per-env segment endpoints (p0 [E,B,2], p1 [E,B,2])."""
-        origin = self.seg_origin[sidx][:, None, :]
-        scale = self.seg_scale[sidx][:, None, None]
-        p0 = origin + self.seg_p0_q[sidx].float() * scale
-        p1 = origin + self.seg_p1_q[sidx].float() * scale
-        return p0, p1
 
     @property
     def num_scenarios(self):

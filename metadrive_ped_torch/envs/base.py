@@ -90,7 +90,47 @@ _NOT_PORTED = (
 )
 
 
-class BaseVectorEnv:
+class VectorEnvLoop:
+    """`reset` and the host-sync-free `rollout` loop of a vector env. A
+    subclass gives `device`, `num_envs`, `_reset_impl(rng)`,
+    `_step_impl(state, actions)` and `_rollout_fields(state)`, the state
+    tensors `rollout` can collect by name."""
+
+    def _as_tensor(self, a, dtype):
+        if torch.is_tensor(a):
+            return a.to(device=self.device, dtype=dtype)
+        return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype)
+
+    def reset(self, seed=0):
+        rng = prng.prng_key(0 if seed is None else seed, self.device)
+        self._state, obs, info = self._reset_impl(rng)
+        self._last_obs = obs
+        return obs, info
+
+    def rollout(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
+        """Run n_steps with no host synchronisation inside the loop.
+        policy_fn(obs, state) -> [E,2] actions; or fixed ``actions``.
+        Returns (dict of collected tensors stacked over steps, mean_reward);
+        the mean reward is read on the host once, after the loop, when
+        ``reward`` is collected."""
+        fixed = (self._as_tensor(actions, torch.float32) if actions is not None
+                 else torch.zeros((self.num_envs, 2), device=self.device))
+        state, obs = self._state, self._last_obs
+        outs = {k: [] for k in collect}
+        for _ in range(n_steps):
+            act = policy_fn(obs, state) if policy_fn is not None else fixed
+            state, obs, reward, term, trunc, info = self._step_impl(state, act)
+            special = dict(reward=reward, obs=obs, terminated=term, truncated=trunc,
+                           **self._rollout_fields(state))
+            for k in collect:
+                outs[k].append(special[k] if k in special else info[k])
+        self._state, self._last_obs = state, obs
+        outs = {k: tree_map(lambda *xs: torch.stack(xs), *v) for k, v in outs.items()}
+        mean_reward = float(outs["reward"].mean()) if "reward" in outs else 0.0
+        return outs, mean_reward
+
+
+class BaseVectorEnv(VectorEnvLoop):
     """Shared machinery; reward/done/cost live in subclasses
     (mirrors BaseEnv -> MetaDriveEnv in the reference)."""
 
@@ -278,6 +318,9 @@ class BaseVectorEnv:
                     rl_agent_ratio=cfg["rl_agent_ratio"],
                 ),
             )
+        # the host pack stays for host-side consumers (the episode exporter,
+        # scenario/recorder.py, reads the map from it)
+        self._pack = pack
         self.scene = Scene.from_pack(pack, self.device)
         get_logger().info(
             "compiled %d PG scene(s): %d lane slots, %d NPC slots, %d boundary segs",
@@ -329,11 +372,6 @@ class BaseVectorEnv:
             random_agent_model=self.config["random_agent_model"],
         )
 
-    def _as_tensor(self, a, dtype):
-        if torch.is_tensor(a):
-            return a.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype)
-
     def _convert_actions(self, actions):
         """Discrete / MultiDiscrete -> continuous
         (env_input_policy.py:40-48 convert_to_continuous_action)."""
@@ -353,44 +391,20 @@ class BaseVectorEnv:
             throttle = (a // s_dim).float() * t_unit - 1.0
         return torch.stack([steering, throttle], dim=-1)
 
-    def reset(self, seed=0):
-        rng = prng.prng_key(0 if seed is None else seed, self.device)
-        self._state, obs, info = self._reset_impl(rng)
-        self._last_obs = obs
-        return obs, info
-
     def step(self, actions):
         actions = self._convert_actions(actions)
         self._state, obs, reward, terminated, truncated, info = self._step_impl(self._state, actions)
         self._last_obs = obs
         return obs, reward, terminated, truncated, info
 
-    def rollout(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
-        """Run n_steps with no host synchronisation inside a step.
-        policy_fn(obs, state) -> [E,2] actions; or fixed ``actions``.
-        Returns (dict of collected tensors stacked over steps, mean_reward).
-        """
-        fixed = (self._as_tensor(actions, torch.float32) if actions is not None
-                 else torch.zeros((self.num_envs, 2), device=self.device))
-        state, obs = self._state, self._last_obs
-        outs = {k: [] for k in collect}
-        for _ in range(n_steps):
-            act = policy_fn(obs, state) if policy_fn is not None else fixed
-            state, obs, reward, term, trunc, info = self._step_impl(state, act)
-            special = dict(
-                reward=reward, obs=obs, terminated=term, truncated=trunc,
-                ego_pos=state.ego.pos, ego_heading=state.ego.heading,
-                ego_speed=state.ego.speed, ego_action=state.ego.current_action,
-                npc_pos=state.npc.pos, npc_heading=state.npc.heading,
-                npc_speed=state.npc.speed, npc_active=state.npc.active,
-                state=state,
-            )
-            for k in collect:
-                outs[k].append(special[k] if k in special else info[k])
-        self._state, self._last_obs = state, obs
-        outs = {k: tree_map(lambda *xs: torch.stack(xs), *v) for k, v in outs.items()}
-        mean_reward = float(outs["reward"].mean()) if "reward" in outs else 0.0
-        return outs, mean_reward
+    def _rollout_fields(self, state):
+        return dict(
+            ego_pos=state.ego.pos, ego_heading=state.ego.heading,
+            ego_speed=state.ego.speed, ego_action=state.ego.current_action,
+            npc_pos=state.npc.pos, npc_heading=state.npc.heading,
+            npc_speed=state.npc.speed, npc_active=state.npc.active,
+            state=state,
+        )
 
     def _not_ported(self, what, item):
         raise NotImplementedError(

@@ -72,14 +72,24 @@ def yaw_column(cfg_vehicle, random_agent_model=False):
     return col + (2 if random_agent_model else 0)
 
 
-def obs_gap(obs_jax, obs_torch, yaw_col):
+def obs_gap(obs_jax, obs_torch, yaw_col, lat_cols=()):
     """Max abs obs difference, with the yaw-rate feature compared through
     cos(0.1 * f): the JAX package computes it as arccos(<h_t, h_t-1>) / 0.1,
     where a 1-ulp difference of the dot product near 1 moves the feature by
     up to 3.5e-3; cos(0.1 * f) is that dot product (clipped), compared at
-    the same tolerance as every other feature."""
+    the same tolerance as every other feature.
+
+    ``lat_cols`` are features clip01((lat / w + 1) / 2) of a lateral offset
+    computed as sqrt(|rel|^2 - long^2) (ops/polyline.py::local_coordinates,
+    in both packages), which cancels near lat = 0: there a 1-ulp difference
+    of |rel|^2 moves lat by up to 5e-4 m. They are compared through the
+    signed square x|x| of x = 2f - 1 = lat / w, which carries that
+    difference of the squares and nothing more."""
     a = np.asarray(obs_jax, np.float64)
     b = to_np(obs_torch).astype(np.float64)
     d = np.abs(a - b)
     d[:, yaw_col] = np.abs(np.cos(0.1 * a[:, yaw_col]) - np.cos(0.1 * b[:, yaw_col]))
+    for c in lat_cols:
+        x, y = 2 * a[:, c] - 1, 2 * b[:, c] - 1
+        d[:, c] = np.abs(x * np.abs(x) - y * np.abs(y))
     return float(d.max())

@@ -85,3 +85,38 @@ def test_env_steps_through_the_kernel(cuda):
         obs, *_ = env.step(act)
     assert rs.launches == 10 + 1
     assert bool(torch.isfinite(obs).all())
+
+
+def test_scenario_side_cloud_through_the_kernel(cuda):
+    """ScenarioEnv's side detector over the continuous lines of PG-exported
+    scenarios: the kernel's cloud equals its plain version hit for hit, and
+    each step launches it once."""
+    import math
+
+    from metadrive_ped_torch import MetaDriveEnv, ScenarioEnv
+    from metadrive_ped_torch.ops import ray_segment as rs
+    from metadrive_ped_torch.ops.raycast import _fan_dirs
+    from metadrive_ped_torch.scenario import export_scenarios
+    src = MetaDriveEnv(dict(num_envs=4, map="SCS", num_scenarios=4, traffic_density=0.1),
+                       device="cpu")
+    src.reset(seed=0)
+    sds = list(export_scenarios(src, 30, actions=[[0.0, 1.0]] * 4).values())
+    env = ScenarioEnv(dict(num_envs=64, scenario_data=sds, reactive_traffic=True,
+                           vehicle_config=dict(side_detector=dict(num_lasers=160))),
+                      device="cuda")
+    rs.launches = 0
+    env.reset(seed=0)
+    act = torch.tensor([[0.0, 1.0]] * 64, device="cuda")
+    for _ in range(10):
+        obs, *_ = env.step(act)
+    assert rs.launches == 10 + 1
+    assert bool(torch.isfinite(obs).all())
+    st = env._state
+    table, counts = env._line_table
+    assert bool((counts[:, 0] > 0).all())
+    none = st.ego.heading.new_zeros((64, 0))
+    args = (st.ego.pos.contiguous(), st.sidx, _fan_dirs(st.ego.heading, 160, offset=math.pi / 2),
+            (none, none), 50.0, 50.0, table, counts)
+    (side, _), (ref, _) = rs.detector_clouds(*args), rs.detector_clouds_plain(*args)
+    assert float((side - ref).abs().max()) <= 1e-5
+    assert int((side < 1).sum()) == int((ref < 1).sum()) > 0

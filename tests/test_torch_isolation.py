@@ -1,6 +1,7 @@
 """metadrive_ped_torch and chip_smoke.py stand alone: they import neither
-jax, flax nor metadrive_ped_tpu, the env needs an explicit device="cpu"
-without a GPU, and chip_smoke.py refuses to run without one."""
+jax, flax, metadrive_ped_tpu nor bench.py, the envs (PG and scenario) need
+an explicit device="cpu" without a GPU, and chip_smoke.py refuses to run
+without one."""
 import ast
 import os
 import shutil
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "flax", "metadrive_ped_tpu")
+BLOCKED = ("jax", "flax", "metadrive_ped_tpu", "bench")
 
 _BLOCKED_RUN = f"""
 import sys
@@ -26,6 +27,20 @@ env = MetaDriveEnv(dict(num_envs=4, map="SC", num_scenarios=2, traffic_density=0
 obs, _ = env.reset(seed=0)
 for _ in range(5):
     obs, *_ = env.step(np.tile([0.0, 1.0], (4, 1)))
+from metadrive_ped_torch import ScenarioEnv
+from metadrive_ped_torch.scenario import export_scenarios
+from metadrive_ped_torch.scenario.synthetic import synthetic_waymo_sd
+env.reset(seed=0)
+sources = dict(synthetic=[synthetic_waymo_sd(s, T=20, n_tracks=8, lane_pts=30) for s in range(2)],
+               exported=list(export_scenarios(env, 12, actions=np.tile([0.0, 1.0], (4, 1))).values()))
+for name, sds in sources.items():
+    senv = ScenarioEnv(dict(num_envs=3, scenario_data=sds, reactive_traffic=True,
+                            vehicle_config=dict(side_detector=dict(num_lasers=16))), device="cpu")
+    sobs, _ = senv.reset(seed=0)
+    for _ in range(25):
+        sobs, *_ = senv.step(np.tile([0.0, 0.8], (3, 1)))
+    assert bool(np.isfinite(sobs.numpy()).all())
+    print("scenario", name, tuple(sobs.shape))
 import chip_smoke
 loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -43,6 +58,8 @@ def test_port_runs_with_jax_blocked():
     out = _run(["-c", _BLOCKED_RUN], ROOT)
     assert out.returncode == 0, out.stderr
     assert "stepped (4, 263)" in out.stdout
+    for name in ("synthetic", "exported"):
+        assert f"scenario {name} (3, 165)" in out.stdout
 
 
 def _port_sources():
@@ -83,6 +100,17 @@ def test_default_device_needs_cuda(monkeypatch):
         MetaDriveEnv(dict(num_envs=2, map="S", traffic_density=0.0))
     with pytest.raises(RuntimeError):
         MetaDriveEnv(dict(num_envs=2, map="S", traffic_density=0.0), device="cuda")
+
+
+def test_scenario_env_default_device_needs_cuda(monkeypatch):
+    from metadrive_ped_torch import ScenarioEnv
+    from metadrive_ped_torch.scenario.synthetic import synthetic_waymo_sd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sds = [synthetic_waymo_sd(0, T=10, n_tracks=4, lane_pts=20)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ScenarioEnv(dict(num_envs=2, scenario_data=sds))
+    with pytest.raises(RuntimeError):
+        ScenarioEnv(dict(num_envs=2, scenario_data=sds), device="cuda")
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

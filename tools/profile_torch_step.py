@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of one main-path step of metadrive_ped_torch goes on the GPU.
+"""Where the time of one step of metadrive_ped_torch goes on the GPU.
 
     python3 tools/profile_torch_step.py [--num-envs 8192] [--steps 10] [--table PATH]
+    python3 tools/profile_torch_step.py --scenario [--steps 10] [--table PATH]
 
 Builds the env of chip_smoke.py's main path (the `pg` bench protocol with
-the side and lane-line detectors on), warms it up, then measures:
+the side and lane-line detectors on) or, with --scenario, each of
+chip_smoke.py's three ScenarioEnv phases at their widths (scenario_replay,
+scenario_reactive, scenario_lines), warms it up, then measures:
 
 - wall ms per step (host clock around steps ending in a synchronize);
 - device-busy ms per step and the busy share, from torch.profiler's CUDA
@@ -13,8 +16,10 @@ the side and lane-line detectors on), warms it up, then measures:
 - device ms, wall ms and launches of each stage of the step, each run
   alone on the step's state (the stages sum to about the whole step).
 
-Prints one JSON line; with --table, writes the profiler's kernel table of
-the whole step to PATH.
+Prints one JSON line per env; with --table, writes the profiler's kernel
+table of the whole step to PATH (one table per env with --scenario).
+The scenario steps go through `rollout` (1 step a call), which makes no
+host sync, as `step` does for its coverage statistics.
 """
 import argparse
 import json
@@ -53,6 +58,8 @@ def main():
     ap.add_argument("--num-envs", type=int, default=8192)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--table", help="file for the profiler's kernel table")
+    ap.add_argument("--scenario", action="store_true",
+                    help="profile chip_smoke.py's ScenarioEnv phases instead of the PG step")
     args = ap.parse_args()
 
     import torch
@@ -66,26 +73,15 @@ def main():
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.table and os.path.exists(args.table):
+        os.remove(args.table)  # step_profile appends one table per env
+    if args.scenario:
+        return profile_scenarios(card, args)
     env = MetaDriveEnv(dict(MAIN_PATH, num_envs=args.num_envs), device="cuda")
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
     env.reset(seed=0)
-    for _ in range(30):
-        env.step(act)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        env.step(act)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-
-    prof = profiled(lambda: env.step(act), args.steps)
-    busy_ms, launches = kernel_stats(prof, args.steps)
-    if args.table:
-        with open(args.table, "w") as f:
-            f.write(f"{card}; {E} envs; {args.steps} steps\n")
-            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
-                                              max_name_column_width=90))
+    row = step_profile(card, "pg_detectors", E, lambda: env.step(act), args.steps, args.table)
 
     # the stages of _step_impl, each alone on the current state
     st, scene, cfg = env._state, env.scene, env.config
@@ -119,21 +115,111 @@ def main():
         "auto-reset spawn (threefry + gathers)": lambda: env._spawn(st.rng, st.sidx),
         "reward/cost/done": lambda: env.done_function(st, zeros > 0, zeros > 0),
     }
-    stage_rows = {}
+    print(json.dumps(dict(card=card, num_envs=E, steps=args.steps, **row,
+                          stages=stage_profile(stages))), flush=True)
+    return 0
+
+
+def step_profile(card, name, E, step, steps, table):
+    """wall ms, device ms, busy share and launches of ``steps`` calls of
+    step(); writes the kernel table to ``table`` when given."""
+    import torch
+    for _ in range(30):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    prof = profiled(step, steps)
+    busy_ms, launches = kernel_stats(prof, steps)
+    if table:
+        with open(table, "a") as f:
+            f.write(f"{name}: {card}; {E} envs; {steps} steps\n")
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
+                                              max_name_column_width=90))
+    return dict(wall_ms_per_step=wall_ms, env_steps_per_s=E / wall_ms * 1e3,
+                device_busy_ms_per_step=busy_ms, busy_share=busy_ms / wall_ms,
+                launches_per_step=launches, launch_bound_hint_us_per_launch=wall_ms * 1e3 / launches)
+
+
+def stage_profile(stages):
+    """device ms, wall ms and launches of each stage, run alone 5 times."""
+    import torch
+    rows = {}
     for name, fn in stages.items():
         ms, n = kernel_stats(profiled(fn, 5), 5)
         t0 = time.perf_counter()
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-        stage_rows[name] = dict(device_ms=ms, wall_ms=(time.perf_counter() - t0) * 1e3 / 5,
-                                launches=n)
-    print(json.dumps(dict(
-        card=card, num_envs=E, steps=args.steps, wall_ms_per_step=wall_ms,
-        env_steps_per_s=E / wall_ms * 1e3, device_busy_ms_per_step=busy_ms,
-        busy_share=busy_ms / wall_ms, launches_per_step=launches,
-        launch_bound_hint_us_per_launch=wall_ms * 1e3 / launches,
-        stages=stage_rows)), flush=True)
+        rows[name] = dict(device_ms=ms, wall_ms=(time.perf_counter() - t0) * 1e3 / 5, launches=n)
+    return rows
+
+
+def profile_scenarios(card, args):
+    """One JSON line for each of chip_smoke.py's ScenarioEnv phases."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+    from metadrive_ped_torch import MetaDriveEnv, ScenarioEnv
+    from metadrive_ped_torch.constants import SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE
+    from metadrive_ped_torch.ops import collision, polyline, raycast
+    from metadrive_ped_torch.ops.raycast import _fan_dirs
+    from metadrive_ped_torch.scenario import export_scenarios
+    from metadrive_ped_torch.scenario.synthetic import synthetic_waymo_sd
+    synthetic = [synthetic_waymo_sd(seed) for seed in range(cs.SYNTHETIC_SCENARIOS)]
+    src = MetaDriveEnv(cs.LINES_SOURCE, device="cuda")
+    src.reset(seed=0)
+    full = torch.tensor([0.0, 1.0], device="cuda").expand(src.num_envs, 2).contiguous()
+    exported = list(export_scenarios(src, cs.EXPORT_STEPS, actions=full).values())
+    del src
+    for name, cfg in (("scenario_replay", dict(cs.SCENARIO_REPLAY, scenario_data=synthetic)),
+                      ("scenario_reactive", dict(cs.SCENARIO_REACTIVE, scenario_data=synthetic)),
+                      ("scenario_lines", dict(cs.SCENARIO_LINES, scenario_data=exported))):
+        env = ScenarioEnv(cfg, device="cuda")
+        E = env.num_envs
+        act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
+        env.reset(seed=0)
+        row = step_profile(card, name, E, lambda: env.rollout(1, actions=act, collect=()),
+                           args.steps, args.table)
+        st, scene, vc = env._state, env.scene, env.config["vehicle_config"]
+        ego, s = st.ego, st.sidx.long()
+        pts, npts, arcl = scene.sdc_pts[s], scene.sdc_npts[s], scene.sdc_arclen[s]
+        npc_pos, npc_heading, npc_active = env._npc_pose(st)
+        side = vc["side_detector"]
+        stages = {
+            "npc pose (replay rows + reactive overlay)": lambda: env._npc_pose(st),
+            "trajectory localization (local_coordinates, heading_at, total_length)": lambda: (
+                polyline.local_coordinates(pts, npts, ego.pos, s=arcl),
+                polyline.heading_at(pts, npts, st.cur_long, s=arcl),
+                polyline.total_length(pts, npts, s=arcl)),
+            "boundary-segment flags": lambda: collision.vehicle_segment_flags(
+                ego.pos, ego.heading, ego.params.length, ego.params.width,
+                *scene.seg_points(st.sidx), scene.seg_type[s], scene.seg_halfwidth[s],
+                scene.seg_valid[s], (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK)),
+            "lidar cloud (rays x track OBBs)": lambda: raycast.lidar_cloud(
+                ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"],
+                npc_pos, npc_heading, scene.trk_len[s], scene.trk_wid[s], npc_active),
+            "side cloud (fan + one kernel launch)": lambda: raycast.detector_clouds(
+                ego.pos, ego.heading, st.sidx, (side["num_lasers"], side["distance"]),
+                (0, side["distance"]), *env._line_table),
+            "side fan alone": lambda: _fan_dirs(ego.heading, side["num_lasers"],
+                                                offset=math.pi / 2),
+            "observation (whole, cached localization)": lambda: env._observe(
+                st, cached=(st.cur_long, st.cur_lat, ego.heading,
+                            (npc_pos, npc_heading, npc_active))),
+            "auto-reset spawn (threefry split + gathers)": lambda: env._spawn(st.rng, st.sidx),
+        }
+        if cfg.get("reactive_traffic"):
+            stages["reactive IDM (_step_npc_reactive)"] = lambda: env._step_npc_reactive(st, ego)
+        row.update(stages=stage_profile(stages))
+        print(json.dumps(dict(phase=name, card=card, num_envs=E, steps=args.steps, **row)),
+              flush=True)
+        del env
     return 0
 
 
