@@ -46,10 +46,28 @@ needs one CUDA device, and prints one JSON line per phase:
                  env's table of real lines first (side hits must be > 0)
 9. scenario_card_vs_cpu  32 envs for 20 steps of 8 on the card and on the
                  CPU: obs and reward within 1e-4, every bool flag equal
+10. safe         SafeMetaDriveEnv at the `safe` bench protocol
+                 (bench.py:33-36, 4096 envs, 16 scenarios): cylinder bodies,
+                 crashes that cost and do not end the episode; as 6, with
+                 the crash_vehicle / crash_object / crash_human counts (one
+                 at least) and no kernel launch (the detectors are off)
+11. marl         MultiAgentRoundaboutEnv at the `marl` protocol
+                 (bench.py:37-41): 512 envs x 8 agents = 4096 rows; as 6,
+                 with env-steps/s, agent-steps/s, agent terminations and
+                 respawns, and no kernel launch
+12. marl_40      the same scene at `marl_40` (bench.py:42-47): 256 envs x
+                 40 agents = 10,240 rows; as 11, and one respawn at least
+13. marl_tollgate  MultiAgentTollgateEnv, 256 envs x 40 agents: the kernel
+                 against its plain version on the tollgate's line table
+                 (side 72 and lane-line 4 rays at 20 m, side hits > 0),
+                 then as 11 with steps + 1 launches
+14. marl_card_vs_cpu  roundabout 4 x 8 and tollgate 2 x 8 for 20 steps on
+                 the card and on the CPU: obs and reward within 1e-4, every
+                 bool flag, dead_timer and slot equal
 
-then the kernels line (launches summed over the env phases 4, 6, 7 and 8),
-the card's name and power limit, and last {"ok": true, "device": {...}}.
-Any failed phase raises and exits non-zero.
+then the kernels line (launches summed over the env phases 4, 6-8 and
+10-13), the card's name and power limit, and last
+{"ok": true, "device": {...}}. Any failed phase raises and exits non-zero.
 """
 import json
 import math
@@ -57,6 +75,7 @@ import os
 import subprocess
 import sys
 import time
+from operator import attrgetter
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,6 +97,16 @@ SCENARIO_LINES = dict(num_envs=1024, reactive_traffic=True,
                       vehicle_config=dict(side_detector=dict(num_lasers=160)))
 LINES_SOURCE = dict(num_envs=16, num_scenarios=16, map=3, traffic_density=0.1)
 SYNTHETIC_SCENARIOS = 16
+# The safe and multi-agent phases: bench.py's `safe` (bench.py:33-36),
+# `marl` (:37-41) and `marl_40` (:42-47) families at their widths (:344),
+# and the tollgate scene at the marl_40 width, whose detectors put the
+# ray-segment kernel on the multi-agent path (side 72, lane-line 4).
+SAFE = dict(num_envs=4096, num_scenarios=16, horizon=1000)
+MARL = dict(num_envs=512, num_agents=8)
+MARL_40 = dict(num_envs=256)
+MARL_TOLLGATE = dict(num_envs=256)
+MARL_CPU = (("MultiAgentRoundaboutEnv", dict(num_envs=4, num_agents=8)),
+            ("MultiAgentTollgateEnv", dict(num_envs=2, num_agents=8)))
 EXPORT_STEPS = 100
 DEVICE = "cuda"
 STEPS = 200
@@ -315,18 +344,16 @@ def scenario_kernel_args(env):
             side["distance"], side["distance"], *env._line_table)
 
 
-def drive_scenario(phase, env, card):
-    """Reset and STEPS full-throttle steps of a ScenarioEnv through
-    `rollout`: the first step under set_sync_debug_mode("error"), the rate
-    over steps TIMED_FROM-STEPS. Checks the obs, one kernel launch per step
-    and one at reset, and that an episode finished; returns the phase's
-    line."""
+def drive(env, collect, mid=None):
+    """Reset and STEPS full-throttle steps through `rollout`: the first
+    step under set_sync_debug_mode("error"), the rate over steps
+    TIMED_FROM-STEPS. Returns (the collected fields [STEPS, rows], the
+    seconds of the timed window, kernel launches, mid(env) after the warm
+    steps)."""
     import torch
 
     from metadrive_ped_torch.ops import ray_segment as rs
-    E = env.num_envs
-    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
-    collect = ("terminated", "truncated")
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(env.num_envs, 2).contiguous()
     torch.cuda.reset_peak_memory_stats()
     rs.launches = 0
     env.reset(seed=0)
@@ -336,27 +363,47 @@ def drive_scenario(phase, env, card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     warm, _ = env.rollout(TIMED_FROM - 1, actions=act, collect=collect)
-    npc_long = env._state.npc_long.max()
+    at_mid = mid(env) if mid is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     timed, _ = env.rollout(STEPS - TIMED_FROM, actions=act, collect=collect)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = rs.launches
-    finished = sum(int((o["terminated"] | o["truncated"]).sum()) for o in (first, warm, timed))
+    outs = {k: torch.cat([first[k], warm[k], timed[k]]) for k in collect}
+    return outs, seconds, rs.launches, at_mid
+
+
+def check_obs(env):
+    """(shape, ok) of the last observation: ok when it is finite, in
+    [0, 1] and [rows, observation_dim]."""
+    import torch
     obs = env._last_obs
-    obs_ok = bool(torch.isfinite(obs).all()) and bool(((obs >= 0) & (obs <= 1)).all())
+    ok = (bool(torch.isfinite(obs).all()) and bool(((obs >= 0) & (obs <= 1)).all())
+          and tuple(obs.shape) == (env.num_envs, env.observation_dim))
+    return list(obs.shape), ok
+
+
+def drive_scenario(phase, env, card):
+    """A ScenarioEnv phase through `drive`. Checks the obs, one kernel
+    launch per step and one at reset, and that an episode finished;
+    returns the phase's line."""
+    import torch
+    E = env.num_envs
+    outs, seconds, launches, npc_long = drive(env, ("terminated", "truncated"),
+                                              mid=lambda e: e._state.npc_long.max())
+    finished = int((outs["terminated"] | outs["truncated"]).sum())
+    obs_shape, obs_ok = check_obs(env)
     table, counts = env._line_table
     row = dict(phase=phase, num_envs=E, scenarios=env.num_scenarios, steps=STEPS,
-           rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
-           env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
-           obs_shape=list(obs.shape), obs_ok=obs_ok, episodes_finished=finished,
-           n_cont=counts[:, 0].tolist(), line_table_rows=int(table.shape[1]),
-           ray_segment_launches=launches, expected_launches=STEPS + 1, host_sync_checked_step=1,
-           npc_long_max=float(torch.maximum(npc_long, env._state.npc_long.max())),
-           peak_memory_bytes=torch.cuda.max_memory_allocated())
+               rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
+               env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
+               obs_shape=obs_shape, obs_ok=obs_ok, episodes_finished=finished,
+               n_cont=counts[:, 0].tolist(), line_table_rows=int(table.shape[1]),
+               ray_segment_launches=launches, expected_launches=STEPS + 1, host_sync_checked_step=1,
+               npc_long_max=float(torch.maximum(npc_long, env._state.npc_long.max())),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
     emit(**row)
-    if tuple(obs.shape) != (E, env.observation_dim) or not obs_ok:
+    if not obs_ok:
         raise AssertionError(f"{phase}: observation out of shape or range")
     if launches != STEPS + 1:
         raise AssertionError(f"{phase}: ray-segment kernel launched {launches} times, "
@@ -366,25 +413,83 @@ def drive_scenario(phase, env, card):
     return row
 
 
-def card_vs_cpu(make_env, cfg, steps=20):
+def drive_safe(card):
+    """SafeMetaDriveEnv at the `safe` bench protocol: crashes cost and do
+    not end the episode; the detectors are off, so no kernel launches."""
+    import torch
+
+    from metadrive_ped_torch import SafeMetaDriveEnv
+    env = SafeMetaDriveEnv(SAFE, device=DEVICE)
+    E = env.num_envs
+    crashes = ("crash_vehicle", "crash_object", "crash_human")
+    outs, seconds, launches, _ = drive(env, ("terminated", "truncated") + crashes)
+    counts = {k: int(outs[k].sum()) for k in crashes}
+    obs_shape, obs_ok = check_obs(env)
+    row = dict(phase="safe", num_envs=E, scenarios=env.num_scenarios, steps=STEPS,
+               rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
+               env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
+               obs_shape=obs_shape, obs_ok=obs_ok, cylinder_bodies=env._has_cylinders,
+               episodes_finished=int((outs["terminated"] | outs["truncated"]).sum()),
+               crash_events=counts, ray_segment_launches=launches, expected_launches=0,
+               host_sync_checked_step=1, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**row)
+    if not obs_ok:
+        raise AssertionError("safe: observation out of shape or range")
+    if launches != 0:
+        raise AssertionError(f"safe: the detectors are off, yet the kernel launched {launches} times")
+    if sum(counts.values()) == 0:
+        raise AssertionError("safe: no crash in 200 steps")
+    return row
+
+
+def drive_marl(phase, env, card, expected_launches):
+    """A multi-agent phase: env-steps/s and agent-steps/s, agent
+    terminations and respawns (rows whose episode restarts at a spawn slot;
+    no env resets before the horizon of 1000) over the 200 steps."""
+    import torch
+    rows, envs = env.num_envs, env.num_marl_envs
+    outs, seconds, launches, _ = drive(env, ("terminated", "truncated", "step_count"))
+    respawns = int((outs["step_count"] == 0).sum())
+    obs_shape, obs_ok = check_obs(env)
+    row = dict(phase=phase, num_envs=envs, agents_per_env=env.agents_per_env, rows=rows,
+               steps=STEPS, rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
+               env_steps_per_s=envs * (STEPS - TIMED_FROM) / seconds,
+               agent_steps_per_s=rows * (STEPS - TIMED_FROM) / seconds, card=card,
+               obs_shape=obs_shape, obs_ok=obs_ok,
+               agent_terminations=int(outs["terminated"].sum()), respawns=respawns,
+               ray_segment_launches=launches, expected_launches=expected_launches,
+               host_sync_checked_step=1, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**row)
+    if not obs_ok:
+        raise AssertionError(f"{phase}: observation out of shape or range")
+    if launches != expected_launches:
+        raise AssertionError(f"{phase}: ray-segment kernel launched {launches} times, "
+                             f"expected {expected_launches}")
+    return row
+
+
+def card_vs_cpu(make_env, cfg, steps=20, state_ints=()):
     """The same env config on the card and on the CPU, stepped at full
     throttle: (obs max abs difference, reward max abs difference, bool
-    flags that differ)."""
+    flags that differ). ``state_ints`` names integer state fields
+    ("dead_timer", "ego.slot") whose differing entries count as flags."""
     import torch
     gpu, cpu = make_env(cfg, device=DEVICE), make_env(cfg, device="cpu")
-    E = cfg["num_envs"]
     obs_gap = lambda a, b: float((a.cpu() - b).abs().max())
     og, _ = gpu.reset(seed=0)
     oc, _ = cpu.reset(seed=0)
     obs_err = obs_gap(og, oc)
     rew_err, flag_mismatches = 0.0, 0
+    act = torch.zeros(tuple(oc.shape[:-1]) + (2,))  # [E, 2] or [E, A, 2]
+    act[..., 1] = 1.0
     for _ in range(steps):
-        og, rg, tg, trg, ig = gpu.step(torch.tensor([[0.0, 1.0]] * E, device=DEVICE))
-        oc, rc, tc, trc, ic = cpu.step(torch.tensor([[0.0, 1.0]] * E))
+        og, rg, tg, trg, ig = gpu.step(act.to(DEVICE))
+        oc, rc, tc, trc, ic = cpu.step(act)
         obs_err = max(obs_err, obs_gap(og, oc))
         rew_err = max(rew_err, float((rg.cpu() - rc).abs().max()))
         flags = [(tg, tc), (trg, trc)] + [(ig[k], ic[k]) for k in ic
                                           if torch.is_tensor(ic[k]) and ic[k].dtype == torch.bool]
+        flags += [(attrgetter(n)(gpu._state), attrgetter(n)(cpu._state)) for n in state_ints]
         flag_mismatches += sum(int((a.cpu() != b).sum()) for a, b in flags)
     return obs_err, rew_err, flag_mismatches
 
@@ -522,6 +627,41 @@ def main():
          reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
     if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
         raise AssertionError("scenario: the card and the CPU disagree")
+
+    # ---- safe and multi-agent ---------------------------------------------
+    import metadrive_ped_torch as port
+    phase_launches["safe"] = drive_safe(card)["ray_segment_launches"]
+    for phase, cfg in (("marl", MARL), ("marl_40", MARL_40)):
+        env = port.MultiAgentRoundaboutEnv(cfg, device=DEVICE)
+        row = drive_marl(phase, env, card, expected_launches=0)
+        phase_launches[phase] = row["ray_segment_launches"]
+        if phase == "marl_40" and row["respawns"] == 0:
+            raise AssertionError("marl_40: no agent respawned in 200 steps")
+        del env
+
+    env = port.MultiAgentTollgateEnv(MARL_TOLLGATE, device=DEVICE)
+    env.reset(seed=0)
+    st, vc = env._state, env.config["vehicle_config"]
+    fan = lambda R: _fan_dirs(st.ego.heading, R, offset=math.pi / 2)
+    toll_row = kernel_case("marl_tollgate", (
+        st.ego.pos.contiguous(), st.sidx, fan(vc["side_detector"]["num_lasers"]),
+        fan(vc["lane_line_detector"]["num_lasers"]), vc["side_detector"]["distance"],
+        vc["lane_line_detector"]["distance"], *env._line_table), iters=20)
+    if toll_row["hits"][0] == 0:
+        raise AssertionError("marl_tollgate: the side detector saw no line")
+    rows.append(toll_row)
+    phase_launches["marl_tollgate"] = drive_marl("marl_tollgate", env, card,
+                                                 expected_launches=STEPS + 1)["ray_segment_launches"]
+    del env
+
+    for name, cfg in MARL_CPU:
+        obs_err, rew_err, flag_mismatches = card_vs_cpu(
+            getattr(port, name), cfg, state_ints=("dead_timer", "ego.slot"))
+        emit(phase="marl_card_vs_cpu", env=name, num_envs=cfg["num_envs"],
+             num_agents=cfg["num_agents"], steps=20, obs_max_abs_err=obs_err,
+             reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
+        if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
+            raise AssertionError(f"{name}: the card and the CPU disagree")
 
     # ---- the kernels line ------------------------------------------------
     print(json.dumps({"kernels": [dict(

@@ -5,14 +5,27 @@ of tensors batched over an env axis ``[E, ...]`` on one device, and one
 ``step`` advances every environment in lockstep. Maps are compiled on the
 host (numpy) into fixed-size scene packs. The detector clouds run on a
 hand-written CUDA kernel (csrc/ray_segment.cu) on the GPU. `ScenarioEnv`
-replays logged ScenarioDescriptions (scenario/).
+replays logged ScenarioDescriptions (scenario/); the multi-agent envs fold
+their agents into rows and take and give ``[E, A, ...]`` arrays.
 
     >>> from metadrive_ped_torch import MetaDriveEnv
     >>> env = MetaDriveEnv(dict(num_envs=1024, map="SCS"), device="cuda")
     >>> obs, info = env.reset(seed=0)
     >>> obs, reward, terminated, truncated, info = env.step(actions)
 """
+from metadrive_ped_torch.envs.marl_envs import (
+    MultiAgentBidirectionEnv, MultiAgentBottleneckEnv, MultiAgentIntersectionEnv,
+    MultiAgentMetaDrive, MultiAgentParkingLotEnv, MultiAgentRacingEnv, MultiAgentRoundaboutEnv,
+    MultiAgentTinyInter, MultiAgentTollgateEnv,
+)
 from metadrive_ped_torch.envs.metadrive_env import MetaDriveEnv
+from metadrive_ped_torch.envs.safe_metadrive_env import SafeMetaDriveEnv
 from metadrive_ped_torch.envs.scenario_env import ScenarioEnv
+from metadrive_ped_torch.envs.varying_dynamics_env import VaryingDynamicsEnv
 
-__all__ = ["MetaDriveEnv", "ScenarioEnv"]
+__all__ = [
+    "MetaDriveEnv", "SafeMetaDriveEnv", "VaryingDynamicsEnv", "ScenarioEnv",
+    "MultiAgentMetaDrive", "MultiAgentRoundaboutEnv", "MultiAgentIntersectionEnv",
+    "MultiAgentBottleneckEnv", "MultiAgentBidirectionEnv", "MultiAgentTollgateEnv",
+    "MultiAgentParkingLotEnv", "MultiAgentRacingEnv", "MultiAgentTinyInter",
+]

@@ -342,16 +342,8 @@ class BaseVectorEnv(VectorEnvLoop):
             (pack["obj_valid"] & np.isin(pack["obj_kind"], (OBJ_CONE, OBJ_WARNING))).any()
             or (pack["ped_valid"] & (pack["ped_kind"] == PED_WALKER)).any()
         )
-        N, O, P = (pack[k].shape[1] for k in ("npc_lane", "obj_pos", "ped_lane"))
-        self._target_slices = dict(
-            npc=slice(0, N), obj=slice(N, N + O), ped=slice(N + O, N + O + P),
-        )
-        # per-target share of the contact push the ego takes: half against
-        # NPCs (they take the other half), all of it against static objects
-        frac = np.zeros(N + O + P, np.float32)
-        frac[:N] = 0.5
-        frac[N:N + O] = 1.0
-        self._push_frac = torch.as_tensor(frac).to(dev)
+        self._set_target_layout(extra=0)
+        N = pack["npc_lane"].shape[1]
         self._npc_timer0 = (torch.arange(N, dtype=torch.int32, device=dev) * 17) % 50
         # the detectors' per-scenario line table, built once: no step
         # gathers or dequantizes segments for them
@@ -360,6 +352,23 @@ class BaseVectorEnv(VectorEnvLoop):
         if vc["side_detector"]["num_lasers"] > 0 or vc["lane_line_detector"]["num_lasers"] > 0:
             self._line_table = ray_segment.build_line_table(
                 self.scene, include_broken=vc["lane_line_detector"]["num_lasers"] > 0)
+
+    def _set_target_layout(self, extra):
+        """Slices of the lidar/contact target axis: NPCs, static objects,
+        pedestrians, then ``extra`` vehicle bodies per row (the other agents
+        of a multi-agent env), and the share of the contact push the ego
+        takes against each: half against NPCs and agents (they take the
+        other half), all of it against static objects."""
+        N, O, P = (self._pack[k].shape[1] for k in ("npc_lane", "obj_pos", "ped_lane"))
+        self._target_slices = dict(
+            npc=slice(0, N), obj=slice(N, N + O), ped=slice(N + O, N + O + P),
+            agents=slice(N + O + P, N + O + P + extra),
+        )
+        frac = np.zeros(N + O + P + extra, np.float32)
+        frac[:N] = 0.5
+        frac[N:N + O] = 1.0
+        frac[N + O + P:] = 0.5
+        self._push_frac = torch.as_tensor(frac).to(self.device)
 
     # ------------------------------------------------------------------ API
     @property
@@ -403,6 +412,7 @@ class BaseVectorEnv(VectorEnvLoop):
             ego_speed=state.ego.speed, ego_action=state.ego.current_action,
             npc_pos=state.npc.pos, npc_heading=state.npc.heading,
             npc_speed=state.npc.speed, npc_active=state.npc.active,
+            step_count=state.step_count,
             state=state,
         )
 
@@ -427,41 +437,25 @@ class BaseVectorEnv(VectorEnvLoop):
         self._state = None
 
     # -------------------------------------------------------------- spawning
-    def _spawn(self, rng, sidx):
-        """Fresh per-env episode state for scenario indices sidx [E]."""
+    def _spawn(self, rng, sidx, slot=None):
+        """Fresh per-env episode state for scenario indices sidx [E],
+        spawning at ``slot`` [E] (default: a random valid spawn slot with
+        random_spawn_lane_index, else slot 0)."""
         scene = self.scene
         E = sidx.shape[0]
         s = sidx.long()
         dev = self.device
-        if self.config["random_spawn_lane_index"]:
-            # uniform over the scenario's valid spawn slots
-            SLOT = scene.slot_valid.shape[1]
-            noise = prng.uniform(prng.fold_in(rng, 79), (SLOT,))
-            score = torch.where(scene.slot_valid[s], noise, -1.0)
-            slot = score.argmax(dim=1).to(torch.int32)  # first max, as the JAX one-hot
-        else:
-            slot = torch.zeros(E, dtype=torch.int32, device=dev)
-        # spawn poses come from the host-computed tables (core/structs.py)
-        spawn_lane = onehot_pick(scene.slot_lane[s], slot)
-        pos = scene.slot_pos[s, slot.long()]
-        heading = onehot_pick(scene.slot_heading[s], slot)
-        zeros = torch.zeros(E, device=dev)
-        false = torch.zeros(E, dtype=torch.bool, device=dev)
-        ego = EgoState(
-            pos=pos, heading=heading, speed=zeros, vel_dir=zeros,
-            steering=zeros, throttle=zeros,
-            last_action=torch.zeros((E, 2), device=dev),
-            current_action=torch.zeros((E, 2), device=dev),
-            last_pos=pos, last_heading=heading,
-            lane=spawn_lane, route_idx=torch.zeros(E, dtype=torch.int32, device=dev),
-            slot=slot, on_lane=torch.ones(E, dtype=torch.bool, device=dev),
-            crash_vehicle=false, crash_object=false, crash_human=false,
-            crash_building=false, crash_sidewalk=false,
-            on_yellow_line=false, on_white_line=false, out_of_route=false,
-            past_pos=pos[:, None, :].repeat(1, PAST_POS_STEPS, 1),
-            break_down=false,
-            params=self._ego_params(rng, E),
-        )
+        if slot is None:
+            if self.config["random_spawn_lane_index"]:
+                # uniform over the scenario's valid spawn slots
+                SLOT = scene.slot_valid.shape[1]
+                noise = prng.uniform(prng.fold_in(rng, 79), (SLOT,))
+                score = torch.where(scene.slot_valid[s], noise, -1.0)
+                slot = score.argmax(dim=1).to(torch.int32)  # first max, as the JAX one-hot
+            else:
+                slot = torch.zeros(E, dtype=torch.int32, device=dev)
+        ego = self._spawn_ego(rng, s, slot)
+        zeros = ego.speed  # the ego's zeros [E], shared (one fill fewer)
         npc_long = scene.npc_long[s]
         nz = torch.zeros_like(npc_long)
         # Respawn: all NPCs live immediately. Trigger/Hybrid: released when
@@ -487,6 +481,34 @@ class BaseVectorEnv(VectorEnvLoop):
             scenario_cap=torch.full((E,), self.num_scenarios, dtype=torch.int32, device=dev),
             aux=torch.zeros((E, 4), device=dev), policy_state=torch.zeros((E, 4), device=dev),
             ego=ego, npc=npc, ped=ped,
+        )
+
+    def _spawn_ego(self, rng, s, slot):
+        """The ego part of `_spawn`: a fresh vehicle at spawn ``slot`` [E] of
+        scenarios ``s`` [E] (int64)."""
+        scene = self.scene
+        E = s.shape[0]
+        dev = self.device
+        # spawn poses come from the host-computed tables (core/structs.py)
+        spawn_lane = onehot_pick(scene.slot_lane[s], slot)
+        pos = scene.slot_pos[s, slot.long()]
+        heading = onehot_pick(scene.slot_heading[s], slot)
+        zeros = torch.zeros(E, device=dev)
+        false = torch.zeros(E, dtype=torch.bool, device=dev)
+        return EgoState(
+            pos=pos, heading=heading, speed=zeros, vel_dir=zeros,
+            steering=zeros, throttle=zeros,
+            last_action=torch.zeros((E, 2), device=dev),
+            current_action=torch.zeros((E, 2), device=dev),
+            last_pos=pos, last_heading=heading,
+            lane=spawn_lane, route_idx=torch.zeros(E, dtype=torch.int32, device=dev),
+            slot=slot, on_lane=torch.ones(E, dtype=torch.bool, device=dev),
+            crash_vehicle=false, crash_object=false, crash_human=false,
+            crash_building=false, crash_sidewalk=false,
+            on_yellow_line=false, on_white_line=false, out_of_route=false,
+            past_pos=pos[:, None, :].repeat(1, PAST_POS_STEPS, 1),
+            break_down=false,
+            params=self._ego_params(rng, E),
         )
 
     def _ego_params(self, rng, E):
@@ -554,38 +576,64 @@ class BaseVectorEnv(VectorEnvLoop):
         obs = self._observe(state, ego_long, torch.zeros(E, device=self.device))
         return state, obs, dict(env_seed=self._seed_of(sidx))
 
+    def _extra_vehicle_targets(self, state):
+        """Hook: further vehicle bodies of each row (multi-agent envs: the
+        other agents of the same env), as (pos, heading, len, wid, active)
+        [E,X,...], or None. X is the ``extra`` of `_set_target_layout`."""
+        return None
+
+    def _override_kinematics(self, state, ego, dt, rep):
+        """Hook: replace the bicycle-model pose of selected rows (rule-based
+        agents that advance along their lane); default no change."""
+        return ego
+
+    def _freeze_mask(self, state):
+        """Hook: [E] bool of rows whose ego stays frozen this step
+        (multi-agent delay-done corpses), or None when none is."""
+        return None
+
     def _lidar_targets(self, state):
         """(pos, heading, len, wid, active) [E,T,...] of every lidar-visible
         and collidable body: NPC vehicles + static traffic objects +
-        pedestrians/cyclists (reference lidar mask, lidar.py:28), and the
-        per-target radius [E,T] of cylinder bodies (pedestrian r=0.35, cone
-        r=0.2, warning r=0.5 — pedestrian.py:12-118,
-        traffic_object.py:43-160), or None when no compiled scene has one."""
+        pedestrians/cyclists (reference lidar mask, lidar.py:28) + the extra
+        vehicle bodies of `_extra_vehicle_targets`, and the per-target
+        radius [E,T] of cylinder bodies (pedestrian r=0.35, cone r=0.2,
+        warning r=0.5 — pedestrian.py:12-118, traffic_object.py:43-160), or
+        None when no compiled scene has one."""
         scene, npc = self.scene, state.npc
         s = state.sidx.long()
         ped_pos, ped_heading = participants.ped_world_pose(scene, state.sidx, state.ped)
-        targets = (
-            torch.cat([npc.pos, scene.obj_pos[s], ped_pos], dim=1),
-            torch.cat([npc.heading, scene.obj_heading[s], ped_heading], dim=1),
-            torch.cat([npc.params.length, scene.obj_len[s], scene.ped_len[s]], dim=1),
-            torch.cat([npc.params.width, scene.obj_wid[s], scene.ped_wid[s]], dim=1),
-            torch.cat([npc.active, scene.obj_valid[s], state.ped.active], dim=1),
-        )
+        parts = [
+            [npc.pos, scene.obj_pos[s], ped_pos],
+            [npc.heading, scene.obj_heading[s], ped_heading],
+            [npc.params.length, scene.obj_len[s], scene.ped_len[s]],
+            [npc.params.width, scene.obj_wid[s], scene.ped_wid[s]],
+            [npc.active, scene.obj_valid[s], state.ped.active],
+        ]
+        extra = self._extra_vehicle_targets(state)
+        if extra is not None:
+            for lst, arr in zip(parts, extra):
+                lst.append(arr)
+        targets = tuple(torch.cat(p, dim=1) for p in parts)
         radius = None
         if self._has_cylinders:
             okind = scene.obj_kind[s]
             obj_r = torch.where(okind == OBJ_CONE, 0.2, torch.where(okind == OBJ_WARNING, 0.5, 0.0))
             ped_r = torch.where(scene.ped_kind[s] == PED_WALKER, 0.35, 0.0)
-            radius = torch.cat([torch.zeros_like(npc.speed), obj_r, ped_r], dim=1)
+            r = [torch.zeros_like(npc.speed), obj_r, ped_r]
+            if extra is not None:
+                r.append(torch.zeros_like(extra[1]))  # agents are vehicles
+            radius = torch.cat(r, dim=1)
         return targets, radius
 
-    def _resolve_contacts(self, ego, npc, hits, t_pos, t_heading, t_len, t_wid):
+    def _resolve_contacts(self, ego, npc, hits, t_pos, t_heading, t_len, t_wid, frozen=None):
         """Batched rigid contact response (replaces Bullet's solver,
         engine_core.py:350-352): for every ego<->body overlap compute the SAT
         minimum-translation vector, split it between the two dynamic bodies
         (equal mass; objects are static -> the ego takes the full push), and
         remove each body's closing velocity component. Pedestrians don't
-        block the chassis; crash_human stays a flag."""
+        block the chassis; crash_human stays a flag. Rows of ``frozen`` [E]
+        take no push and keep their speed."""
         depth, normal = collision.obb_obb_mtv(
             ego.pos[:, None, :], ego.heading[:, None],
             ego.params.length[:, None], ego.params.width[:, None],
@@ -601,6 +649,9 @@ class BaseVectorEnv(VectorEnvLoop):
         mag = torch.sqrt((push ** 2).sum(-1, keepdim=True))
         push = push * torch.clamp(1.0 / torch.clamp(mag, min=1.0), max=1.0)
         scale = collision.contact_speed_scale(ego.speed, ego.heading + ego.vel_dir, normal, contact)
+        if frozen is not None:
+            push = torch.where(frozen[:, None], 0.0, push)
+            scale = torch.where(frozen, 1.0, scale)
         ego = ego.replace(pos=ego.pos + push, speed=ego.speed * scale)
 
         # NPCs take the opposite half of their contact with the ego
@@ -661,7 +712,15 @@ class BaseVectorEnv(VectorEnvLoop):
             ego.steering, ego.throttle, ego.params, dt=dt, substeps=rep,
             enable_reverse=cfg["vehicle_config"]["enable_reverse"],
         )
+        frozen = self._freeze_mask(state)
+        if frozen is not None:
+            keep = lambda new, old: torch.where(frozen.reshape(frozen.shape + (1,) * (old.dim() - 1)),
+                                                old, new)
+            pos, heading = keep(pos, ego.pos), keep(heading, ego.heading)
+            speed, vel_dir = keep(speed, ego.speed), keep(vel_dir, ego.vel_dir)
         ego = ego.replace(pos=pos, heading=heading, speed=speed, vel_dir=vel_dir)
+        # rows driven kinematically instead of by the bicycle model
+        ego = self._override_kinematics(state, ego, dt, rep)
 
         # PG traffic-light phases (opt-in): green -> yellow -> red per arm,
         # opposite arms antiphased. Computed before the NPC step so red
@@ -691,10 +750,7 @@ class BaseVectorEnv(VectorEnvLoop):
             # red lights hold IDM NPCs at the stop line
             light_block = (light_ctx["lane"], light_ctx["long"],
                            light_ctx["valid"] & (light_ctx["status"] == 2))
-        npc = idm.step_npcs(
-            scene, sidx, npc, ego, dt=dt, substeps=rep,
-            respawn_mode=cfg["traffic_mode"] in ("respawn", "hybrid"), light_block=light_block,
-        )
+        npc = self._step_traffic(state, npc, ego, dt, rep, light_block)
 
         # pedestrians / cyclists advance kinematically
         ped = participants.step_peds(scene, sidx, state.ped, dt * rep)
@@ -722,6 +778,8 @@ class BaseVectorEnv(VectorEnvLoop):
                 [hits[:, :sl.start], torch.where(circ, circ_hits, hits[:, sl]), hits[:, sl.stop:]],
                 dim=1)
         crash_v = hits[:, kinds["npc"]].any(dim=1)
+        if kinds["agents"].stop > kinds["agents"].start:
+            crash_v = crash_v | hits[:, kinds["agents"]].any(dim=1)
         obj_hits = hits[:, kinds["obj"]]
         # toll booths are buildings, not traffic objects
         is_building = scene.obj_kind[s] == OBJ_BUILDING
@@ -733,7 +791,8 @@ class BaseVectorEnv(VectorEnvLoop):
         # closing velocity (Bullet's per-substep contact resolution,
         # engine_core.py:350-352)
         if cfg["contact_response"]:
-            ego, npc = self._resolve_contacts(ego, npc, hits, t_pos, t_heading, t_len, t_wid)
+            ego, npc = self._resolve_contacts(ego, npc, hits, t_pos, t_heading, t_len, t_wid,
+                                              frozen)
             state = state.replace(ego=ego, npc=npc)
 
         # localization + navigation update (after_step,
@@ -758,10 +817,11 @@ class BaseVectorEnv(VectorEnvLoop):
 
         step_count = state.step_count + 1
         state = state.replace(ego=ego, npc=npc, step_count=step_count)
+        state = self._pre_reward_update(state, loc)
 
         # reward / done / cost (subclass formulas)
         arrive = localization.arrive_destination(scene, sidx, ego.slot, ego.pos)
-        out_of_road = self._is_out_of_road(ego)
+        out_of_road = self._is_out_of_road(ego, state)
         reward, step_info = self.reward_function(state, loc, arrive, out_of_road)
         cost, cost_info = self.cost_function(state, out_of_road)
         terminated, truncated, done_info = self.done_function(state, arrive, out_of_road)
@@ -777,6 +837,7 @@ class BaseVectorEnv(VectorEnvLoop):
             episode_energy=episode_energy,
         )
 
+        state, terminated, truncated = self._post_done(state, terminated, truncated)
         done = terminated | truncated
         # crash aggregates vehicle/object/building/sidewalk/human
         # (metadrive_env.py:148-152)
@@ -816,6 +877,7 @@ class BaseVectorEnv(VectorEnvLoop):
 
         # auto-reset done envs in place (vectorized-RL semantics replacing
         # the reference's explicit env.reset())
+        done = self._reset_mask(state, done)
         if cfg["auto_reset"]:
             new_keys = prng.split(state.rng, 2)                 # [E,2,2]
             step_rng, reset_rng = new_keys[:, 0], new_keys[:, 1]
@@ -838,7 +900,31 @@ class BaseVectorEnv(VectorEnvLoop):
         return state, obs, reward, terminated, truncated, info
 
     # ---- overridable scheme ------------------------------------------------
-    def _is_out_of_road(self, ego):
+    def _step_traffic(self, state, npc, ego, dt, rep, light_block):
+        """Advance NPC traffic one decision step (IDM). Multi-agent envs
+        step it once per env against all agent rows instead."""
+        return idm.step_npcs(
+            self.scene, state.sidx, npc, ego, dt=dt, substeps=rep,
+            respawn_mode=self.config["traffic_mode"] in ("respawn", "hybrid"),
+            light_block=light_block,
+        )
+
+    def _pre_reward_update(self, state, loc):
+        """Hook after localization and contacts, before reward/done: env
+        families update their aux counters here (tollgate stay time)."""
+        return state
+
+    def _post_done(self, state, terminated, truncated):
+        """Hook after the done computation (multi-agent delay-done and
+        respawn)."""
+        return state, terminated, truncated
+
+    def _reset_mask(self, state, done):
+        """Hook mapping per-row done to the rows to auto-reset (a
+        multi-agent env resets only when all its agents are finished)."""
+        return done
+
+    def _is_out_of_road(self, ego, state=None):
         raise NotImplementedError
 
     def reward_function(self, state, loc, arrive, out_of_road):

@@ -16,7 +16,7 @@ class MetaDriveEnv(BaseVectorEnv):
     names another device (``"cpu"``); without a GPU it raises unless asked
     for the CPU."""
 
-    def _is_out_of_road(self, ego):
+    def _is_out_of_road(self, ego, state=None):
         # reference: metadrive_env.py:229-237
         ret = ~ego.on_lane
         if self.config["out_of_route_done"]:

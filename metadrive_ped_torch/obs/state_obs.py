@@ -106,6 +106,27 @@ def surrounding_vehicles_info(ego, npc, num_others, perceive_distance):
     return feats
 
 
+def ego_core(scene, sidx, ego):
+    """The six core ego features [E,6]: heading difference to the route,
+    speed, steering, the two action components and the yaw rate
+    (state_obs.py:104-127)."""
+    speed_kmh = ego.speed * 3.6
+    f_speed = clip01((speed_kmh + 1) / (ego.params.max_speed_kmh + 1))
+    f_steer = clip01((ego.steering / OBS_MAX_STEERING + 1) / 2)
+    f_act0 = clip01((ego.current_action[:, 0] + 1) / 2)
+    f_act1 = clip01((ego.current_action[:, 1] + 1) / 2)
+
+    # yaw rate: arccos(clip(<h_t, h_t-1>, 0, 1)) / 0.1 (state_obs.py:121-127),
+    # written as min(|wrap(dh)|, pi/2) / 0.1, which is the same function. In
+    # float32 the arccos form turns a 1-ulp error of the dot product near 1
+    # into up to 3.5e-3 of the feature; this form does not.
+    dh = torch.abs(wrap_to_pi(ego.heading - ego.last_heading))
+    f_yaw = clip01(torch.clamp(dh, max=math.pi / 2) / 0.1)
+
+    hdiff = localization.heading_diff_ref(scene, sidx, ego.slot, ego.route_idx, ego.pos, ego.heading)
+    return torch.stack([hdiff, f_speed, f_steer, f_act0, f_act1, f_yaw], dim=-1)
+
+
 def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_distance=50.0,
             num_others=0, npc=None, side_lasers=0, side_distance=50.0,
             lane_line_lasers=0, lane_line_distance=20.0, line_table=None,
@@ -122,21 +143,7 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
     SideDetector (ContinuousLaneLine mask, distance_detector.py:194) and
     LaneLineDetector (both line masks, :209), both from one launch;
     ``line_table`` = (table, counts) of `ray_segment.build_line_table`."""
-    speed_kmh = ego.speed * 3.6
-    f_speed = clip01((speed_kmh + 1) / (ego.params.max_speed_kmh + 1))
-    f_steer = clip01((ego.steering / OBS_MAX_STEERING + 1) / 2)
-    f_act0 = clip01((ego.current_action[:, 0] + 1) / 2)
-    f_act1 = clip01((ego.current_action[:, 1] + 1) / 2)
-
-    # yaw rate: arccos(clip(<h_t, h_t-1>, 0, 1)) / 0.1 (state_obs.py:121-127),
-    # written as min(|wrap(dh)|, pi/2) / 0.1, which is the same function. In
-    # float32 the arccos form turns a 1-ulp error of the dot product near 1
-    # into up to 3.5e-3 of the feature; this form does not.
-    dh = torch.abs(wrap_to_pi(ego.heading - ego.last_heading))
-    f_yaw = clip01(torch.clamp(dh, max=math.pi / 2) / 0.1)
-
-    hdiff = localization.heading_diff_ref(scene, sidx, ego.slot, ego.route_idx, ego.pos, ego.heading)
-
+    core = ego_core(scene, sidx, ego)
     pieces = []
     if random_agent_model:
         pieces.append(torch.stack(
@@ -153,7 +160,7 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
             scene, sidx, ego.slot, ego.route_idx, ego.pos)
         pieces.append(torch.stack(
             [clip01(left / TOTAL_SIDE_WIDTH), clip01(right / TOTAL_SIDE_WIDTH)], dim=-1))
-    pieces.append(torch.stack([hdiff, f_speed, f_steer, f_act0, f_act1, f_yaw], dim=-1))
+    pieces.append(core)
     if lane_line_lasers > 0:
         pieces.append(lane_cloud)
     else:

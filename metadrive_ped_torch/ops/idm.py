@@ -157,18 +157,32 @@ def lane_change_decision(v_kmh, front_gap, front_speed, overtake_timer,
 
 
 def step_npcs(scene, sidx, npc, ego, dt=0.02, substeps=5, respawn_mode=False,
-              light_block=None):
+              light_block=None, extra_bodies=None):
     """One env-step of all NPCs: IDM + lane change + dynamics + routing.
 
     light_block = (light_lane [E,LG], light_long [E,LG], stop [E,LG]): red
     traffic lights act as a stationary front body at the stop line of their
     lane (the reference's light is a physical air wall across the lane,
-    base_traffic_light.py:45-51), so IDM traffic queues at red."""
+    base_traffic_light.py:45-51), so IDM traffic queues at red.
+
+    ego may be None (multi-agent envs step traffic once per env, not per
+    agent row); extra_bodies = (pos [E,X,2], speed [E,X], length [E,X],
+    active [E,X]) adds further vehicles the NPCs react to (all the agents).
+    Gaps are center to center, so length goes unused."""
     E, N = npc.lane.shape
-    cand_pos = torch.cat([npc.pos, ego.pos[:, None, :]], dim=1)          # [E,C,2]
-    cand_speed = torch.cat([npc.speed, ego.speed[:, None]], dim=1)
-    cand_active = torch.cat(
-        [npc.active, torch.ones((E, 1), dtype=torch.bool, device=npc.active.device)], dim=1)
+    pos_l, speed_l, act_l = [npc.pos], [npc.speed], [npc.active]
+    if ego is not None:
+        pos_l.append(ego.pos[:, None, :])
+        speed_l.append(ego.speed[:, None])
+        act_l.append(torch.ones((E, 1), dtype=torch.bool, device=npc.active.device))
+    if extra_bodies is not None:
+        x_pos, x_speed, _, x_act = extra_bodies
+        pos_l.append(x_pos)
+        speed_l.append(x_speed)
+        act_l.append(x_act)
+    cand_pos = torch.cat(pos_l, dim=1)                                     # [E,C,2]
+    cand_speed = torch.cat(speed_l, dim=1)
+    cand_active = torch.cat(act_l, dim=1)
     C = cand_pos.shape[1]
     not_self = ~torch.eye(N, C, dtype=torch.bool, device=cand_pos.device)[None]
 

@@ -143,6 +143,20 @@ def _checkpoint_info(g, lane_num, lane_width, pos, heading):
     )
 
 
+def checkpoint_positions(scene, sidx, slot, route_idx):
+    """World positions [E,2] of the two navigation checkpoints, the
+    lane-end midpoints the 2x5 navigation block aims at
+    (node_network_navigation.py:243-292 get_checkpoints); the second lane
+    takes the first's lane count and width, as `navi_info` does."""
+    lane0, nlanes, next_lane0, has_next = _ref_lane_ids(scene, sidx, slot, route_idx)
+    g1 = lane_geom.gather_lane(scene, sidx, lane0)
+    later_middle = (nlanes.float() / 2 - 0.5) * g1["width"]
+    ck1 = lane_geom.position(g1, g1["length"], later_middle)
+    g2 = lane_geom.gather_lane(scene, sidx, torch.where(has_next, next_lane0, lane0))
+    ck2 = lane_geom.position(g2, g2["length"], later_middle)
+    return ck1, ck2
+
+
 def navi_info(scene, sidx, slot, route_idx, pos, heading):
     """The 10-dim navigation observation block (2 checkpoints x 5)."""
     lane0, nlanes, next_lane0, has_next = _ref_lane_ids(scene, sidx, slot, route_idx)

@@ -54,19 +54,21 @@ def ray_segment_fraction(origin, angles, max_dist, p0, p1, valid, dirs=None):
                              p1[..., 0] - p0[..., 0], p1[..., 1] - p0[..., 1], valid)
 
 
-def build_line_table(scene, include_broken):
+def build_line_table(scene, include_broken, points=None):
     """Each scenario's lane-line segments, for the detector clouds.
 
     Returns ``table`` [S, Bl, 4] float32, rows (ax, ay, sx, sy) with
-    a = p0 and s = p1 - p0 as `Scene.seg_points` gives them (the same
-    ops in the same order, so bit-equal), and ``counts`` [S, 2] int32,
+    a = p0 and s = p1 - p0 of ``points`` = (p0, p1) [S, B, 2], by default
+    the dequantized endpoints `Scene.seg_points` gives (the same ops in the
+    same order, so bit-equal), and ``counts`` [S, 2] int32,
     (n_cont, n_any). Within a scenario the valid continuous lines (yellow,
     white) come first, then, with ``include_broken``, the valid broken
     lines; each group keeps its order. Rows from n_any to Bl are zero;
     Bl = max(1, max n_any). The sweep's result is a min, which no order
     changes, so the table gives the same clouds as the per-env masks."""
     S = scene.num_scenarios
-    p0, p1 = scene.seg_points(torch.arange(S, device=scene.seg_type.device))
+    p0, p1 = points if points is not None else scene.seg_points(
+        torch.arange(S, device=scene.seg_type.device))
     rows = torch.cat([p0, p1 - p0], dim=-1)                               # [S,B,4]
     typ, valid = scene.seg_type, scene.seg_valid
     cont = ((typ == SEG_YELLOW_LINE) | (typ == SEG_WHITE_LINE)) & valid

@@ -120,3 +120,29 @@ def test_scenario_side_cloud_through_the_kernel(cuda):
     (side, _), (ref, _) = rs.detector_clouds(*args), rs.detector_clouds_plain(*args)
     assert float((side - ref).abs().max()) <= 1e-5
     assert int((side < 1).sum()) == int((ref < 1).sum()) > 0
+
+
+def test_tollgate_clouds_through_the_kernel(cuda):
+    """The tollgate's detector clouds (side 72 and lane-line 4 rays at
+    20 m over its float-endpoint line table): the kernel equals its plain
+    version hit for hit, and each multi-agent step launches it once."""
+    import math
+
+    from metadrive_ped_torch import MultiAgentTollgateEnv
+    from metadrive_ped_torch.ops import ray_segment as rs
+    from metadrive_ped_torch.ops.raycast import _fan_dirs
+    env = MultiAgentTollgateEnv(dict(num_envs=4, num_agents=16), device="cuda")
+    rs.launches = 0
+    env.reset(seed=0)
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    outs, _ = env.rollout(10, actions=act, collect=("obs",))
+    assert rs.launches == 10 + 1
+    assert bool(torch.isfinite(outs["obs"]).all())
+    st = env._state
+    fan = lambda R: _fan_dirs(st.ego.heading, R, offset=math.pi / 2)
+    args = (st.ego.pos.contiguous(), st.sidx, fan(72), fan(4), 20.0, 20.0, *env._line_table)
+    out, ref = rs.detector_clouds(*args), rs.detector_clouds_plain(*args)
+    for a, b in zip(out, ref):
+        assert float((a - b).abs().max()) <= 1e-5
+        assert int((a < 1).sum()) == int((b < 1).sum())
+    assert int((out[0] < 1).sum()) > 0

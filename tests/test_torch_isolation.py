@@ -1,6 +1,7 @@
 """metadrive_ped_torch and chip_smoke.py stand alone: they import neither
-jax, flax, metadrive_ped_tpu nor bench.py, the envs (PG and scenario) need
-an explicit device="cpu" without a GPU, and chip_smoke.py refuses to run
+jax, flax, metadrive_ped_tpu nor bench.py, every env class (PG, safe,
+varying dynamics, scenario, multi-agent) needs an explicit device="cpu"
+without a GPU, and chip_smoke.py refuses to run
 without one."""
 import ast
 import os
@@ -10,6 +11,8 @@ import sys
 
 import pytest
 import torch
+
+import metadrive_ped_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "metadrive_ped_tpu", "bench")
@@ -41,6 +44,14 @@ for name, sds in sources.items():
         sobs, *_ = senv.step(np.tile([0.0, 0.8], (3, 1)))
     assert bool(np.isfinite(sobs.numpy()).all())
     print("scenario", name, tuple(sobs.shape))
+from metadrive_ped_torch import MultiAgentRoundaboutEnv, MultiAgentTollgateEnv
+for cls in (MultiAgentRoundaboutEnv, MultiAgentTollgateEnv):
+    menv = cls(dict(num_envs=2, num_agents=4), device="cpu")
+    mobs, _ = menv.reset(seed=0)
+    for _ in range(5):
+        mobs, *_, minfo = menv.step(np.tile([0.0, 1.0], (2, 4, 1)))
+    assert bool(np.isfinite(mobs.numpy()).all()) and tuple(minfo["__all__"].shape) == (2,)
+    print("marl", cls.__name__, tuple(mobs.shape))
 import chip_smoke
 loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -60,6 +71,8 @@ def test_port_runs_with_jax_blocked():
     assert "stepped (4, 263)" in out.stdout
     for name in ("synthetic", "exported"):
         assert f"scenario {name} (3, 165)" in out.stdout
+    assert "marl MultiAgentRoundaboutEnv (2, 4, 91)" in out.stdout
+    assert "marl MultiAgentTollgateEnv (2, 4, 156)" in out.stdout
 
 
 def _port_sources():
@@ -69,6 +82,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "profile_torch_step.py")
 
 
 def _imported_modules(path):
@@ -111,6 +125,17 @@ def test_scenario_env_default_device_needs_cuda(monkeypatch):
         ScenarioEnv(dict(num_envs=2, scenario_data=sds))
     with pytest.raises(RuntimeError):
         ScenarioEnv(dict(num_envs=2, scenario_data=sds), device="cuda")
+
+
+@pytest.mark.parametrize("name", sorted(set(metadrive_ped_torch.__all__)
+                                        - {"MetaDriveEnv", "ScenarioEnv"}))
+def test_new_env_classes_default_device_needs_cuda(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(num_envs=1, num_scenarios=1, traffic_density=0.0)
+    if name.startswith("MultiAgent"):
+        cfg["num_agents"] = 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(metadrive_ped_torch, name)(cfg)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -3,11 +3,15 @@
 
     python3 tools/profile_torch_step.py [--num-envs 8192] [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --scenario [--steps 10] [--table PATH]
+    python3 tools/profile_torch_step.py --marl [--steps 10] [--table PATH]
+    python3 tools/profile_torch_step.py --count-ops
 
 Builds the env of chip_smoke.py's main path (the `pg` bench protocol with
 the side and lane-line detectors on) or, with --scenario, each of
 chip_smoke.py's three ScenarioEnv phases at their widths (scenario_replay,
-scenario_reactive, scenario_lines), warms it up, then measures:
+scenario_reactive, scenario_lines), or, with --marl, its marl (512 envs x
+8 agents), marl_40 and marl_tollgate (256 x 40) phases, warms it up,
+then measures:
 
 - wall ms per step (host clock around steps ending in a synchronize);
 - device-busy ms per step and the busy share, from torch.profiler's CUDA
@@ -17,9 +21,16 @@ scenario_reactive, scenario_lines), warms it up, then measures:
   alone on the step's state (the stages sum to about the whole step).
 
 Prints one JSON line per env; with --table, writes the profiler's kernel
-table of the whole step to PATH (one table per env with --scenario).
-The scenario steps go through `rollout` (1 step a call), which makes no
-host sync, as `step` does for its coverage statistics.
+table of the whole step to PATH (one table per env with --scenario or
+--marl). The scenario and multi-agent steps go through `rollout` (1 step a
+call), which makes no host sync (ScenarioEnv's `step` reads its coverage
+statistics on the host).
+
+--count-ops needs no GPU: it counts the aten operators one step of each of
+chip_smoke.py's PG, safe and multi-agent envs dispatches on the CPU, at a
+few envs (the count does not depend on the number of envs, only on the
+number of agents), and those of the multi-agent respawn alone. On the card
+about 0.83 kernels launch per operator (PERF.md).
 """
 import argparse
 import json
@@ -60,9 +71,15 @@ def main():
     ap.add_argument("--table", help="file for the profiler's kernel table")
     ap.add_argument("--scenario", action="store_true",
                     help="profile chip_smoke.py's ScenarioEnv phases instead of the PG step")
+    ap.add_argument("--marl", action="store_true",
+                    help="profile chip_smoke.py's marl, marl_40 and marl_tollgate phases")
+    ap.add_argument("--count-ops", action="store_true",
+                    help="count the aten operators of one step of each env, on the CPU")
     args = ap.parse_args()
 
     import torch
+    if args.count_ops:
+        return count_ops()
     if not torch.cuda.is_available():
         print("profile_torch_step.py needs a CUDA device", file=sys.stderr)
         return 1
@@ -77,6 +94,8 @@ def main():
         os.remove(args.table)  # step_profile appends one table per env
     if args.scenario:
         return profile_scenarios(card, args)
+    if args.marl:
+        return profile_marl(card, args)
     env = MetaDriveEnv(dict(MAIN_PATH, num_envs=args.num_envs), device="cuda")
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
@@ -220,6 +239,90 @@ def profile_scenarios(card, args):
         print(json.dumps(dict(phase=name, card=card, num_envs=E, steps=args.steps, **row)),
               flush=True)
         del env
+    return 0
+
+
+def profile_marl(card, args):
+    """One JSON line for each of chip_smoke.py's marl, marl_40 and
+    marl_tollgate phases, with the multi-agent stages alone; the rates
+    count agent rows (agent-steps/s) and envs."""
+    import torch
+
+    import chip_smoke as cs
+    from metadrive_ped_torch import MultiAgentRoundaboutEnv, MultiAgentTollgateEnv
+    from metadrive_ped_torch.ops import raycast
+    for name, cls, cfg in (("marl", MultiAgentRoundaboutEnv, cs.MARL),
+                           ("marl_40", MultiAgentRoundaboutEnv, cs.MARL_40),
+                           ("marl_tollgate", MultiAgentTollgateEnv, cs.MARL_TOLLGATE)):
+        env = cls(cfg, device="cuda")
+        E = env.num_envs
+        act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
+        env.reset(seed=0)
+        row = step_profile(card, name, E, lambda: env.rollout(1, actions=act, collect=()),
+                           args.steps, args.table)
+        row["agent_steps_per_s"] = row.pop("env_steps_per_s")
+        row["env_steps_per_s"] = row["agent_steps_per_s"] / env.agents_per_env
+        st, vc = env._state, env.config["vehicle_config"]
+        ego = st.ego
+        targets, _ = env._lidar_targets(st)
+        zeros = torch.zeros(E, device="cuda")
+        every = torch.ones(E, dtype=torch.bool, device="cuda")
+        stages = {
+            "respawn (region sweep, A-step slot claim, ego spawn)": lambda: env._respawn(st, every),
+            "delay-done and respawn (_post_done)": lambda: env._post_done(st, every, ~every),
+            "other agents as targets": lambda: env._extra_vehicle_targets(st),
+            "lidar targets": lambda: env._lidar_targets(st),
+            "lidar cloud (rays x targets)": lambda: raycast.lidar_cloud(
+                ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"],
+                *targets),
+            "contact response": lambda: env._resolve_contacts(
+                ego, st.npc, torch.ones_like(targets[4]), *targets[:4], env._freeze_mask(st)),
+            "observation (whole)": lambda: env._observe(st, zeros, zeros),
+            "all-done reset mask": lambda: env._reset_mask(st, every),
+        }
+        print(json.dumps(dict(phase=name, card=card, num_envs=env.num_marl_envs,
+                              agents_per_env=env.agents_per_env, rows=E, steps=args.steps, **row,
+                              stages=stage_profile(stages))), flush=True)
+        del env
+    return 0
+
+
+def count_ops():
+    """Aten operators of one step of chip_smoke.py's envs on the CPU."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import chip_smoke as cs
+    import metadrive_ped_torch as port
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def ops(fn):
+        with Count() as c:
+            fn()
+        return c.n
+
+    envs = (("pg_detectors", port.MetaDriveEnv, dict(cs.MAIN_PATH, num_envs=16)),
+            ("safe", port.SafeMetaDriveEnv, dict(cs.SAFE, num_envs=16)),
+            ("marl", port.MultiAgentRoundaboutEnv, dict(cs.MARL, num_envs=2)),
+            ("marl_40", port.MultiAgentRoundaboutEnv, dict(cs.MARL_40, num_envs=2)),
+            ("marl_tollgate", port.MultiAgentTollgateEnv, dict(cs.MARL_TOLLGATE, num_envs=2)))
+    for name, cls, cfg in envs:
+        env = cls(cfg, device="cpu")
+        act = torch.tensor([[0.0, 1.0]] * env.num_envs)
+        env.reset(seed=0)
+        env.rollout(3, actions=act, collect=())
+        row = dict(env=name, rows=env.num_envs,
+                   step_ops=ops(lambda: env.rollout(1, actions=act, collect=())))
+        if hasattr(env, "_respawn"):
+            every = torch.ones(env.num_envs, dtype=torch.bool)
+            row["respawn_ops"] = ops(lambda: env._respawn(env._state, every))
+        print(json.dumps(row), flush=True)
     return 0
 
 
