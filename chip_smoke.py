@@ -64,10 +64,36 @@ needs one CUDA device, and prints one JSON line per phase:
 14. marl_card_vs_cpu  roundabout 4 x 8 and tollgate 2 x 8 for 20 steps on
                  the card and on the CPU: obs and reward within 1e-4, every
                  bool flag, dead_timer and slot equal
+15. mixed_traffic  MixedTrafficEnv at the main path's width (8192 envs,
+                 map=3, 16 scenarios, horizon 1000, side 160, lane-line 12)
+                 with traffic 0.1 and rl_agent_ratio 0.5: every NPC slot
+                 builds the expert's 275-dim observation with its own
+                 240-ray lidar and runs the 275-256-256-4 MLP; the kernel
+                 against its plain version on the env's line table, then as
+                 4 through `rollout` (steps + 1 launches, one step under
+                 set_sync_debug_mode("error")), with the kernel launches a
+                 step and device busy ms from the profiler, the expert
+                 slots (in the packs, and active and released at the end)
+                 and peak device memory
+16. ai_protect_noise  MetaDriveEnv at 8192 envs (map=3, 16 scenarios,
+                 traffic 0.05) with the AI protector (save_level 0.5; the
+                 expert's lidar 240 and 4 neighbours) and lidar noise
+                 (gaussian 0.05, dropout 0.1), steering 0.5 at full
+                 throttle, through `step` for 200 steps (the protector reads
+                 the previous observation only there): env-steps/s,
+                 takeovers counted (one at least), no kernel launch, one
+                 step under set_sync_debug_mode("error")
+17. slice4_card_vs_cpu  as 5 for 20 steps at small widths on MixedTrafficEnv,
+                 the lane-change policy, the AI protector with noise, the
+                 roundabout with rl_agent_ratio 0.5, and the bottleneck and
+                 bidirection scenes (the multi-agent paths through the
+                 kernel that no other phase drives)
 
-then the kernels line (launches summed over the env phases 4, 6-8 and
-10-13), the card's name and power limit, and last
-{"ok": true, "device": {...}}. Any failed phase raises and exits non-zero.
+The expert's products need float32 matmuls in full precision: the device
+phase asserts that TF32 is off. Then the kernels line (launches summed over
+the env phases 4, 6-8, 10-13 and 15-16), the card's name and power limit,
+and last {"ok": true, "device": {...}}. Any failed phase raises and exits
+non-zero.
 """
 import json
 import math
@@ -107,6 +133,29 @@ MARL_40 = dict(num_envs=256)
 MARL_TOLLGATE = dict(num_envs=256)
 MARL_CPU = (("MultiAgentRoundaboutEnv", dict(num_envs=4, num_agents=8)),
             ("MultiAgentTollgateEnv", dict(num_envs=2, num_agents=8)))
+# The agent-policy phases: the main path with half the NPC slots driven by
+# the PPO expert, and the PG env with the AI protector and lidar noise.
+MIXED_TRAFFIC = dict(MAIN_PATH, traffic_density=0.1, rl_agent_ratio=0.5)
+AI_PROTECT_NOISE = dict(num_envs=8192, map=3, num_scenarios=16, traffic_density=0.05, horizon=1000,
+                        use_AI_protector=True, save_level=0.5,
+                        vehicle_config=dict(lidar=dict(num_lasers=240, num_others=4,
+                                                       gaussian_noise=0.05, dropout_prob=0.1)))
+EXPERT_LIDAR = dict(lidar=dict(num_lasers=240))
+MULTI = ("dead_timer", "ego.slot")
+# (class, config, action, integer state compared) of the card-against-CPU
+# runs of the agent-policy configurations
+SLICE4_CPU = (
+    ("MixedTrafficEnv", dict(MIXED_TRAFFIC, num_envs=32), (0.0, 1.0), ()),
+    ("MetaDriveEnv", dict(num_envs=32, map=3, num_scenarios=16, traffic_density=0.05,
+                          agent_policy="lane_change", discrete_action=True,
+                          use_multi_discrete=True), (2, 4), ()),
+    ("MetaDriveEnv", dict(AI_PROTECT_NOISE, num_envs=32), (0.5, 1.0), ()),
+    ("MultiAgentRoundaboutEnv", dict(num_envs=4, num_agents=8, traffic_density=0.3,
+                                     rl_agent_ratio=0.5, vehicle_config=EXPERT_LIDAR),
+     (0.0, 1.0), MULTI),
+    ("MultiAgentBottleneckEnv", dict(num_envs=4, num_agents=8), (0.0, 1.0), MULTI),
+    ("MultiAgentBidirectionEnv", dict(num_envs=4, num_agents=8), (0.0, 1.0), MULTI),
+)
 EXPORT_STEPS = 100
 DEVICE = "cuda"
 STEPS = 200
@@ -468,11 +517,12 @@ def drive_marl(phase, env, card, expected_launches):
     return row
 
 
-def card_vs_cpu(make_env, cfg, steps=20, state_ints=()):
-    """The same env config on the card and on the CPU, stepped at full
-    throttle: (obs max abs difference, reward max abs difference, bool
-    flags that differ). ``state_ints`` names integer state fields
-    ("dead_timer", "ego.slot") whose differing entries count as flags."""
+def card_vs_cpu(make_env, cfg, steps=20, state_ints=(), action=(0.0, 1.0)):
+    """The same env config on the card and on the CPU, stepped with one
+    ``action`` in every row (full throttle by default): (obs max abs
+    difference, reward max abs difference, bool flags that differ).
+    ``state_ints`` names integer state fields ("dead_timer", "ego.slot")
+    whose differing entries count as flags."""
     import torch
     gpu, cpu = make_env(cfg, device=DEVICE), make_env(cfg, device="cpu")
     obs_gap = lambda a, b: float((a.cpu() - b).abs().max())
@@ -480,8 +530,8 @@ def card_vs_cpu(make_env, cfg, steps=20, state_ints=()):
     oc, _ = cpu.reset(seed=0)
     obs_err = obs_gap(og, oc)
     rew_err, flag_mismatches = 0.0, 0
-    act = torch.zeros(tuple(oc.shape[:-1]) + (2,))  # [E, 2] or [E, A, 2]
-    act[..., 1] = 1.0
+    # [E, 2] or [E, A, 2]
+    act = torch.tensor(action, dtype=torch.float32).expand(tuple(oc.shape[:-1]) + (2,))
     for _ in range(steps):
         og, rg, tg, trg, ig = gpu.step(act.to(DEVICE))
         oc, rc, tc, trc, ic = cpu.step(act)
@@ -494,19 +544,138 @@ def card_vs_cpu(make_env, cfg, steps=20, state_ints=()):
     return obs_err, rew_err, flag_mismatches
 
 
+def step_launches(env, act, steps=2):
+    """(kernel launches, device busy ms) per `rollout` step, from the
+    profiler's CUDA kernel records over ``steps`` steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        env.rollout(steps, actions=act, collect=())
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in kernels) / steps,
+            sum(e.self_device_time_total for e in kernels) / 1e3 / steps)
+
+
+def drive_mixed(card):
+    """MixedTrafficEnv at the main path's width: the kernel against its
+    plain version on the env's line table, then `drive`."""
+    import torch
+
+    from metadrive_ped_torch import MixedTrafficEnv
+    env = MixedTrafficEnv(MIXED_TRAFFIC, device=DEVICE)
+    E = env.num_envs
+    env.reset(seed=0)
+    row = kernel_case("mixed_traffic", detector_args(env), iters=20)
+    outs, seconds, launches, _ = drive(env, ("terminated", "truncated"))
+    st = env._state
+    expert = env.scene.npc_expert[st.sidx.long()]
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    per_step, busy_ms = step_launches(env, act)
+    obs_shape, obs_ok = check_obs(env)
+    phase = dict(phase="mixed_traffic", num_envs=E, scenarios=env.num_scenarios,
+                 npc_slots=int(expert.shape[1]), steps=STEPS,
+                 rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
+                 env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
+                 obs_shape=obs_shape, obs_ok=obs_ok,
+                 episodes_finished=int((outs["terminated"] | outs["truncated"]).sum()),
+                 expert_slots=int(expert.sum()),
+                 expert_slots_active=int((expert & st.npc.active & st.npc.released).sum()),
+                 launches_per_step=per_step, device_busy_ms_per_step=busy_ms,
+                 ray_segment_launches=launches, expected_launches=STEPS + 1,
+                 host_sync_checked_step=1, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**phase)
+    if not obs_ok:
+        raise AssertionError("mixed_traffic: observation out of shape or range")
+    if launches != STEPS + 1:
+        raise AssertionError(f"mixed_traffic: ray-segment kernel launched {launches} times, "
+                             f"expected {STEPS + 1}")
+    if phase["expert_slots_active"] == 0:
+        raise AssertionError("mixed_traffic: no expert-driven NPC is on the road")
+    return row, phase
+
+
+def drive_ai_protect(card):
+    """The AI protector with lidar noise through `step`, the first step
+    after reset under set_sync_debug_mode("error")."""
+    import torch
+
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.ops import ray_segment as rs
+    env = MetaDriveEnv(AI_PROTECT_NOISE, device=DEVICE)
+    E = env.num_envs
+    act = torch.tensor([0.5, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    rs.launches = 0
+    env.reset(seed=0)
+    counts = {k: torch.zeros((), dtype=torch.int64, device=DEVICE)
+              for k in ("takeover", "takeover_start", "takeover_end", "terminated")}
+    for i in range(STEPS):
+        if i == TIMED_FROM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i == 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, term, trunc, info = env.step(act)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for k in counts:
+            counts[k] += (term | trunc).sum() if k == "terminated" else info[k].sum()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    obs_shape, obs_ok = check_obs(env)
+    counts = {k: int(v) for k, v in counts.items()}
+    row = dict(phase="ai_protect_noise", num_envs=E, scenarios=env.num_scenarios, steps=STEPS,
+               rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
+               env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
+               obs_shape=obs_shape, obs_ok=obs_ok, takeovers=counts["takeover"],
+               takeover_starts=counts["takeover_start"], takeover_ends=counts["takeover_end"],
+               episodes_finished=counts["terminated"], ray_segment_launches=rs.launches,
+               expected_launches=0, host_sync_checked_step=1,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**row)
+    if not obs_ok:
+        raise AssertionError("ai_protect_noise: observation out of shape or range")
+    if rs.launches != 0:
+        raise AssertionError(f"ai_protect_noise: the detectors are off, yet the kernel launched "
+                             f"{rs.launches} times")
+    if counts["takeover"] == 0:
+        raise AssertionError("ai_protect_noise: the protector never took over")
+    return row
+
+
+def detector_args(env):
+    """The detector_clouds arguments of a PG env's two detectors at its
+    current state."""
+    from metadrive_ped_torch.ops.raycast import _fan_dirs
+    st, vc = env._state, env.config["vehicle_config"]
+    fan = lambda R: _fan_dirs(st.ego.heading, R, offset=math.pi / 2)
+    side, lane = vc["side_detector"], vc["lane_line_detector"]
+    return (st.ego.pos.contiguous(), st.sidx, fan(side["num_lasers"]), fan(lane["num_lasers"]),
+            side["distance"], lane["distance"], *env._line_table)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
+    # the expert's products (policies/expert.py) hold 1e-4 parity only in
+    # full float32
+    tf32 = dict(matmul_precision=torch.get_float32_matmul_precision(),
+                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    if tf32 != dict(matmul_precision="highest", matmul_allow_tf32=False):
+        raise AssertionError(f"float32 matmuls must run without TF32: {tf32}")
     from metadrive_ped_torch import MetaDriveEnv
     from metadrive_ped_torch.core import cuda_build
     from metadrive_ped_torch.ops import ray_segment as rs
-    from metadrive_ped_torch.ops.raycast import _fan_dirs
 
     card = card_name_and_power()
     emit(phase="device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), **tf32)
 
     seconds = cuda_build.build_all()
     emit(phase="build", seconds=seconds,
@@ -519,18 +688,12 @@ def main():
     env = MetaDriveEnv(MAIN_PATH, device=DEVICE)
     E = env.num_envs
     env.reset(seed=0)
-    st = env._state
     table, counts = env._line_table
     emit(phase="env_build", seconds=time.perf_counter() - t0, num_envs=E,
          scenarios=env.num_scenarios, obs_dim=env.observation_dim,
          segments=int(env.scene.seg_type.shape[1]), line_table_rows=int(table.shape[1]),
          n_cont=counts[:, 0].tolist(), n_any=counts[:, 1].tolist())
-    vc = env.config["vehicle_config"]
-    fan = lambda R: _fan_dirs(st.ego.heading, R, offset=math.pi / 2)
-    main_args = (st.ego.pos.contiguous(), st.sidx, fan(vc["side_detector"]["num_lasers"]),
-                 fan(vc["lane_line_detector"]["num_lasers"]), vc["side_detector"]["distance"],
-                 vc["lane_line_detector"]["distance"], table, counts)
-    main_row = kernel_case("main_path", main_args, iters=50)
+    main_row = kernel_case("main_path", detector_args(env), iters=50)
     rows = [main_row] + [kernel_case(name, to_device(make(), DEVICE), iters=20)
                          for name, make in line_cases().items()]
 
@@ -641,12 +804,7 @@ def main():
 
     env = port.MultiAgentTollgateEnv(MARL_TOLLGATE, device=DEVICE)
     env.reset(seed=0)
-    st, vc = env._state, env.config["vehicle_config"]
-    fan = lambda R: _fan_dirs(st.ego.heading, R, offset=math.pi / 2)
-    toll_row = kernel_case("marl_tollgate", (
-        st.ego.pos.contiguous(), st.sidx, fan(vc["side_detector"]["num_lasers"]),
-        fan(vc["lane_line_detector"]["num_lasers"]), vc["side_detector"]["distance"],
-        vc["lane_line_detector"]["distance"], *env._line_table), iters=20)
+    toll_row = kernel_case("marl_tollgate", detector_args(env), iters=20)
     if toll_row["hits"][0] == 0:
         raise AssertionError("marl_tollgate: the side detector saw no line")
     rows.append(toll_row)
@@ -662,6 +820,22 @@ def main():
              reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
         if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
             raise AssertionError(f"{name}: the card and the CPU disagree")
+
+    # ---- expert traffic, the AI protector, lidar noise ---------------------
+    mixed_row, mixed_phase = drive_mixed(card)
+    rows.append(mixed_row)
+    phase_launches["mixed_traffic"] = mixed_phase["ray_segment_launches"]
+    phase_launches["ai_protect_noise"] = drive_ai_protect(card)["ray_segment_launches"]
+    for name, cfg, action, state_ints in SLICE4_CPU:
+        obs_err, rew_err, flag_mismatches = card_vs_cpu(
+            getattr(port, name), cfg, state_ints=state_ints, action=action)
+        emit(phase="slice4_card_vs_cpu", env=name, num_envs=cfg["num_envs"],
+             num_agents=cfg.get("num_agents"), options={k: cfg[k] for k in (
+                 "rl_agent_ratio", "agent_policy", "use_AI_protector") if k in cfg},
+             steps=20, obs_max_abs_err=obs_err, reward_max_abs_err=rew_err, tol=CPU_TOL,
+             flag_mismatches=flag_mismatches)
+        if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
+            raise AssertionError(f"{name} {cfg}: the card and the CPU disagree")
 
     # ---- the kernels line ------------------------------------------------
     print(json.dumps({"kernels": [dict(

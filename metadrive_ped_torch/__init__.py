@@ -7,24 +7,30 @@ host (numpy) into fixed-size scene packs. The detector clouds run on a
 hand-written CUDA kernel (csrc/ray_segment.cu) on the GPU. `ScenarioEnv`
 replays logged ScenarioDescriptions (scenario/); the multi-agent envs fold
 their agents into rows and take and give ``[E, A, ...]`` arrays.
+`MixedTrafficEnv` drives a share of the NPCs with the PPO expert
+(policies/expert.py), and `CurriculumWrapper` widens an env's scenario band
+as its success rate grows.
 
     >>> from metadrive_ped_torch import MetaDriveEnv
     >>> env = MetaDriveEnv(dict(num_envs=1024, map="SCS"), device="cuda")
     >>> obs, info = env.reset(seed=0)
     >>> obs, reward, terminated, truncated, info = env.step(actions)
 """
+from metadrive_ped_torch.envs.curriculum import CurriculumWrapper
 from metadrive_ped_torch.envs.marl_envs import (
     MultiAgentBidirectionEnv, MultiAgentBottleneckEnv, MultiAgentIntersectionEnv,
     MultiAgentMetaDrive, MultiAgentParkingLotEnv, MultiAgentRacingEnv, MultiAgentRoundaboutEnv,
     MultiAgentTinyInter, MultiAgentTollgateEnv,
 )
 from metadrive_ped_torch.envs.metadrive_env import MetaDriveEnv
+from metadrive_ped_torch.envs.mixed_traffic_env import MixedTrafficEnv
 from metadrive_ped_torch.envs.safe_metadrive_env import SafeMetaDriveEnv
 from metadrive_ped_torch.envs.scenario_env import ScenarioEnv
 from metadrive_ped_torch.envs.varying_dynamics_env import VaryingDynamicsEnv
 
 __all__ = [
-    "MetaDriveEnv", "SafeMetaDriveEnv", "VaryingDynamicsEnv", "ScenarioEnv",
+    "MetaDriveEnv", "SafeMetaDriveEnv", "VaryingDynamicsEnv", "ScenarioEnv", "MixedTrafficEnv",
+    "CurriculumWrapper",
     "MultiAgentMetaDrive", "MultiAgentRoundaboutEnv", "MultiAgentIntersectionEnv",
     "MultiAgentBottleneckEnv", "MultiAgentBidirectionEnv", "MultiAgentTollgateEnv",
     "MultiAgentParkingLotEnv", "MultiAgentRacingEnv", "MultiAgentTinyInter",

@@ -1,5 +1,6 @@
-"""Counter-based random keys: a bit-exact twin of the `jax.random` calls the
-env makes (`PRNGKey`, `split`, `fold_in`, `uniform`, `randint`).
+"""Counter-based random keys: a twin of the `jax.random` calls the env makes
+(`PRNGKey`, `split`, `fold_in`, `uniform`, `randint` bit for bit; `normal`
+within 1e-6).
 
 The twin follows JAX's default configuration since 0.5 (checked against
 jax 0.9.0): `jax_default_prng_impl=threefry2x32` and
@@ -16,11 +17,27 @@ no full uint32 arithmetic); every function takes a batch of keys and
 broadcasts over its leading axes, so a batch of keys stands for JAX's
 `vmap` over keys. Arithmetic is int64 masked to 32 bits, so results are
 the same on any device.
+
+`normal` is sqrt(2) * erfinv(u) of a uniform u in (-1, 1), as
+`jax.random.normal` computes it in float32, with the erfinv polynomial
+XLA uses (M. Giles, "Approximating the erfinv function", GPU Computing
+Gems, 2010). `torch.erfinv` is another approximation: it differs from
+XLA's by up to 5e-5. The polynomial here differs by under 1e-6, because
+XLA's log1p rounds differently from torch's.
 """
+import math
+
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+# Giles' single-precision erfinv coefficients, highest degree first, for
+# w = -log1p(-x^2) < 5 (in w - 2.5) and w >= 5 (in sqrt(w) - 3)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+               -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+               -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
 def _rotl(x, r):
@@ -62,10 +79,13 @@ def split(key, num=2):
 
 
 def fold_in(key, data):
-    """`jax.random.fold_in` with a Python int ``data``: [..., 2] -> [..., 2]."""
+    """`jax.random.fold_in`: [..., 2] -> [..., 2]. ``data`` is a Python int
+    or an integer tensor broadcast against the key batch (a traced value in
+    JAX, read on the device here)."""
     k0, k1 = key[..., 0], key[..., 1]
     zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    b0, b1 = threefry2x32(k0, k1, zero, zero + (int(data) & _M32))
+    data = data.to(torch.int64) & _M32 if torch.is_tensor(data) else zero + (int(data) & _M32)
+    b0, b1 = threefry2x32(k0, k1, zero, data)
     return torch.stack([b0, b1], dim=-1)
 
 
@@ -75,9 +95,9 @@ def random_bits(key, n):
     return b0 ^ b1
 
 
-def uniform(key, shape):
-    """`jax.random.uniform(key, shape)` in float32 over [0, 1):
-    [..., 2] -> [..., *shape]."""
+def uniform(key, shape, minval=0.0, maxval=1.0):
+    """`jax.random.uniform(key, shape, minval=minval, maxval=maxval)` in
+    float32 over [minval, maxval): [..., 2] -> [..., *shape]."""
     shape = tuple(shape)
     n = 1
     for d in shape:
@@ -85,7 +105,34 @@ def uniform(key, shape):
     bits = random_bits(key, n)
     # the 23 high bits become the mantissa of a float in [1, 2)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(floats, min=0.0).reshape(key.shape[:-1] + shape)
+    if minval == 0.0 and maxval == 1.0:
+        out = torch.clamp(floats, min=0.0)
+    else:
+        # XLA fuses floats * (maxval - minval) + minval into one multiply-add
+        # (one rounding); the product is exact in float64, so the sum there
+        # rounds as the fused form does
+        lo = np.float32(minval)
+        scale = float(np.float32(maxval) - lo)
+        out = torch.clamp((floats.double() * scale + float(lo)).float(), min=float(lo))
+    return out.reshape(key.shape[:-1] + shape)
+
+
+def _erfinv(x):
+    """XLA's float32 erfinv (Giles' polynomial) of x in [-1, 1]."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
+
+
+def normal(key, shape):
+    """`jax.random.normal(key, shape)` in float32: [..., 2] -> [..., *shape],
+    within 1e-6 of JAX (module docstring)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return float(np.float32(math.sqrt(2.0))) * _erfinv(uniform(key, shape, lo, 1.0))
 
 
 def randint(key, shape, minval, maxval):

@@ -28,6 +28,7 @@ from metadrive_ped_torch.constants import (
     VEHICLE_CLASS_ORDER, VEHICLE_CLASSES,
 )
 from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core.device import resolve_device
 from metadrive_ped_torch.core.logger import get_logger
 from metadrive_ped_torch.core.structs import (
     PAST_POS_STEPS, EgoState, NpcState, PedState, Scene, SimState, VehicleParams, tree_map,
@@ -37,9 +38,12 @@ from metadrive_ped_torch.mapgen.scene import (
 )
 from metadrive_ped_torch.obs import state_obs
 from metadrive_ped_torch.ops import (
-    collision, dynamics, idm, localization, participants, ray_segment,
+    collision, dynamics, idm, lane_geom, localization, mixed_traffic, participants, ray_segment,
 )
 from metadrive_ped_torch.ops.gather import onehot_pick, vector_lookup
+from metadrive_ped_torch.ops.math_ops import wrap_to_pi
+from metadrive_ped_torch.policies.expert import expert_action, load_expert_params
+from metadrive_ped_torch.policies.manual import make_controller
 
 # ---- per-class parameter table (constants.py VEHICLE_CLASSES) -------------
 _CLS = [VEHICLE_CLASSES[k] for k in VEHICLE_CLASS_ORDER]
@@ -67,27 +71,13 @@ def make_vehicle_params(table, class_idx):
     )
 
 
-def resolve_device(device):
-    """The env's device: CUDA unless the caller asks for another. Raises
-    when CUDA is asked for (or defaulted to) and absent."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the env runs on the GPU by default; pass "
-            "device='cpu' to run it on the CPU"
-        )
-    return device
-
-
 # options this package does not implement yet, with the ROADMAP.md item
 # that ports each; they raise instead of being ignored
 _NOT_PORTED = (
-    ("agent_policy", lambda v: v == "lane_change", "queue 1, item 11 (agent policies)"),
-    ("use_AI_protector", bool, "queue 1, item 11 (agent policies)"),
-    ("manual_control", bool, "queue 1, item 11 (agent policies)"),
-    ("rl_agent_ratio", lambda v: v > 0, "queue 1, item 11 (mixed traffic)"),
     ("image_observation", bool, "queue 1, item 14 (camera and render)"),
 )
+# the expert's observation layout (policies/expert.py OBS_DIM = 275)
+EXPERT_LIDAR = dict(num_lasers=240, num_others=4)
 
 
 class VectorEnvLoop:
@@ -281,11 +271,30 @@ class BaseVectorEnv(VectorEnvLoop):
                     f"ROADMAP.md {item} ports it"
                 )
         lidar = cfg["vehicle_config"]["lidar"]
-        if lidar["gaussian_noise"] > 0 or lidar["dropout_prob"] > 0:
-            raise NotImplementedError(
-                "lidar gaussian_noise/dropout_prob are not ported to "
-                "metadrive_ped_torch yet; ROADMAP.md queue 1, item 11 ports them"
-            )
+        if cfg["agent_policy"] == "lane_change":
+            # LaneChangePolicy forces discrete 3-way steering [right, keep,
+            # left] (lange_change_policy.py:17-24); the exception type is the
+            # JAX package's
+            if not cfg["discrete_action"]:
+                raise AssertionError("Must set discrete_action=True for using LaneChangePolicy")
+            cfg.force_set("discrete_steering_dim", 3)
+        if cfg["use_AI_protector"]:
+            if any(lidar[k] != v for k, v in EXPERT_LIDAR.items()):
+                raise AssertionError(
+                    "AI protector needs the expert observation layout (lidar num_lasers=240, "
+                    "num_others=4), like the reference's expert obs-mismatch guard "
+                    "(AI_protect_policy.py:16-21)")
+            self._expert_params = load_expert_params(device=self.device)
+        if cfg["rl_agent_ratio"] > 0:
+            if lidar["num_lasers"] != EXPERT_LIDAR["num_lasers"]:
+                raise ValueError("expert-driven NPCs (rl_agent_ratio > 0) cast the expert's 240 "
+                                 "lidar rays: set vehicle_config.lidar.num_lasers=240")
+            self._npc_expert_params = load_expert_params(device=self.device)
+        # host-side human input for env row 0 (ManualControlPolicy)
+        self._manual_controller = (make_controller(cfg["controller"]) if cfg["manual_control"]
+                                   else None)
+        # the lidar noise key is fold_in(PRNGKey(0), sum of step counts)
+        self._noise_key = prng.prng_key(0, self.device)
         if cfg["log_level"] is not None:
             get_logger().setLevel(cfg["log_level"])
         seeds = list(range(cfg["start_seed"], cfg["start_seed"] + cfg["num_scenarios"]))
@@ -401,8 +410,20 @@ class BaseVectorEnv(VectorEnvLoop):
         return torch.stack([steering, throttle], dim=-1)
 
     def step(self, actions):
+        """One step of every env. With manual_control, the controller is read
+        on the host before the step and its action replaces row 0's. With
+        use_AI_protector, the expert reads the previous observation; only
+        `step` passes it, so `rollout` runs without the protector, as the
+        JAX package's does."""
         actions = self._convert_actions(actions)
-        self._state, obs, reward, terminated, truncated, info = self._step_impl(self._state, actions)
+        if self._manual_controller is not None:
+            manual = self._manual_controller.process_input()
+            if manual is not None:
+                manual = torch.as_tensor(np.asarray(manual, np.float32)).to(self.device)
+                actions = torch.cat([manual.reshape(1, 2), actions[1:]])
+        prev_obs = self._last_obs if self.config["use_AI_protector"] else None
+        self._state, obs, reward, terminated, truncated, info = self._step_impl(
+            self._state, actions, prev_obs)
         self._last_obs = obs
         return obs, reward, terminated, truncated, info
 
@@ -669,10 +690,15 @@ class BaseVectorEnv(VectorEnvLoop):
         lidar_cfg = vc["lidar"]
         targets, radius = self._lidar_targets(state)
         sl = self._target_slices
+        rng = None
+        if lidar_cfg["gaussian_noise"] > 0 or lidar_cfg["dropout_prob"] > 0:
+            rng = prng.fold_in(self._noise_key, state.step_count.sum())
         return state_obs.observe(
             self.scene, state.sidx, state.ego, targets, ego_long, ego_lat,
             num_lasers=lidar_cfg["num_lasers"], lidar_distance=lidar_cfg["distance"],
             num_others=lidar_cfg["num_others"], npc=state.npc,
+            gaussian_noise=lidar_cfg["gaussian_noise"], dropout_prob=lidar_cfg["dropout_prob"],
+            rng=rng,
             side_lasers=vc["side_detector"]["num_lasers"],
             side_distance=vc["side_detector"]["distance"],
             lane_line_lasers=vc["lane_line_detector"]["num_lasers"],
@@ -683,7 +709,7 @@ class BaseVectorEnv(VectorEnvLoop):
         )
 
     # ------------------------------------------------------------------ step
-    def _step_impl(self, state, actions):
+    def _step_impl(self, state, actions, prev_obs=None):
         cfg = self.config
         scene = self.scene
         sidx = state.sidx
@@ -694,6 +720,12 @@ class BaseVectorEnv(VectorEnvLoop):
         actions = torch.clamp(torch.nan_to_num(actions, nan=0.0, posinf=1.0, neginf=-1.0), -1.0, 1.0)
         # broken-down vehicles ignore their actions and coast to a stop
         actions = torch.where(state.ego.break_down[:, None], 0.0, actions)
+
+        takeover_info = None
+        if cfg["agent_policy"] == "lane_change":
+            state, actions = self._lane_change_actions(state, actions)
+        if cfg["use_AI_protector"] and prev_obs is not None:
+            state, actions, takeover_info = self._ai_protect(state, actions, prev_obs)
 
         ego = state.ego
         # before_step (base_vehicle.py:211-232): save last kinematics, apply action
@@ -859,6 +891,8 @@ class BaseVectorEnv(VectorEnvLoop):
         info.update({k: v for k, v in step_info.items() if k != "step_reward"})
         info.update(done_info)
         info.update(cost_info)
+        if takeover_info is not None:
+            info.update(takeover_info)
 
         # traffic-light contact flags: the ego OBB against each light's
         # air-wall stop region, a 0.25 m x lane-width box across the lane
@@ -899,15 +933,103 @@ class BaseVectorEnv(VectorEnvLoop):
         obs = self._observe(state, ego_long, ego_lat)
         return state, obs, reward, terminated, truncated, info
 
+    # ---- agent policies -----------------------------------------------------
+    def _lane_change_actions(self, state, actions):
+        """LaneChangePolicy (policy/lange_change_policy.py:11-72): discrete
+        steering {-1: right, 0: keep, +1: left} picks a target lane; the
+        applied steering is a heading PID plus a lateral PID toward it.
+        policy_state = (heading_i, heading_prev_e, lateral_i, lateral_prev_e)."""
+        scene, ego = self.scene, state.ego
+        cmd = actions[:, 0]
+        g = lane_geom.gather_lane(scene, state.sidx, ego.lane)
+        target = torch.where(
+            cmd > 0.5, torch.where(g["left"] >= 0, g["left"], ego.lane),
+            torch.where(cmd < -0.5, torch.where(g["right"] >= 0, g["right"], ego.lane), ego.lane),
+        )
+        gt = lane_geom.gather_lane(scene, state.sidx, target)
+        long, lat = lane_geom.local_coordinates(gt, ego.pos)
+        herr = -wrap_to_pi(lane_geom.heading_theta_at(gt, long + 1.0) - ego.heading)
+        ps = state.policy_state
+        # the reference's gains (lange_change_policy.py:26-27); the error
+        # signs are those of the IDM steering (ops/idm.py)
+        s_h, h_i, h_e = idm._pid((1.7, 0.01, 3.5), herr, ps[:, 0], ps[:, 1])
+        s_l, l_i, l_e = idm._pid((0.3, 0.002, 0.05), -lat, ps[:, 2], ps[:, 3])
+        steering = torch.clamp(s_h + s_l, -1.0, 1.0)
+        return (state.replace(policy_state=torch.stack([h_i, h_e, l_i, l_e], dim=-1)),
+                torch.stack([steering, actions[:, 1]], dim=-1))
+
+    def _ai_protect(self, state, actions, prev_obs):
+        """AIProtectPolicy / TakeoverPolicy (policy/AI_protect_policy.py): the
+        PPO expert vetoes dangerous actions. save_level > 0.9 is a full
+        takeover; otherwise the expert steps in near the road's edges (obs
+        dims 0 and 1) and when the lidar shows a close side or front body.
+        policy_state[:, 3] latches last step's takeover flag, for the
+        takeover_start / takeover_end info keys."""
+        ego = state.ego
+        save_level = self.config["save_level"]
+        saver = expert_action(self._expert_params, prev_obs)
+        steering, throttle = actions[:, 0], actions[:, 1]
+        if save_level > 0.9:
+            new_s, new_t = saver[:, 0], saver[:, 1]
+        elif save_level > 1e-3:
+            hd = localization.heading_diff_ref(
+                self.scene, state.sidx, ego.slot, ego.route_idx, ego.pos, ego.heading) - 0.5
+            speed_kmh = ego.speed * 3.6
+            f = torch.clamp(1 + torch.abs(hd) * speed_kmh * ego.params.max_speed_kmh,
+                            max=save_level * 10)
+            o0, o1 = prev_obs[:, 0], prev_obs[:, 1]
+            out_of_road = (((o0 < 0.04 * f) & (hd < 0)) | ((o1 < 0.04 * f) & (hd > 0))
+                           | (o0 <= 1e-3) | (o1 <= 1e-3))
+            new_s = torch.where(out_of_road, saver[:, 0], steering)
+            new_t = torch.where(out_of_road, saver[:, 1], throttle)
+            new_t = torch.where(out_of_road & (speed_kmh < 5), 0.5, new_t)
+            # collision guards on the lidar tail of the expert obs
+            n = self.config["vehicle_config"]["lidar"]["num_lasers"]
+            cloud = prev_obs[:, -n:]
+            left, right = n // 4, n // 4 * 3
+            near = (save_level + 0.1) / 10
+            side_close = ((cloud[:, left - 4:left + 6].amin(dim=1) < near)
+                          | (cloud[:, right - 4:right + 6].amin(dim=1) < near))
+            new_s = torch.where(side_close, saver[:, 0], new_s)
+            front_close = torch.minimum(cloud[:, :10].amin(dim=1),
+                                        cloud[:, -10:].amin(dim=1)) < save_level
+            brake = (throttle >= 0) & (saver[:, 1] <= 0) & front_close
+            new_t = torch.where(brake, saver[:, 1], new_t)
+        else:
+            new_s, new_t = steering, throttle
+        takeover = (new_s != steering) | (new_t != throttle)
+        pre = state.policy_state[:, 3] > 0.5
+        # the saver's action applies only from the second consecutive
+        # takeover step (AI_protect_policy.py:49-57)
+        apply = takeover & pre
+        info = dict(takeover=apply, takeover_start=takeover & ~pre, takeover_end=~takeover & pre)
+        ps = torch.cat([state.policy_state[:, :3], takeover.float()[:, None]], dim=1)
+        out = torch.stack([torch.where(apply, new_s, steering), torch.where(apply, new_t, throttle)],
+                          dim=-1)
+        return state.replace(policy_state=ps), out, info
+
     # ---- overridable scheme ------------------------------------------------
     def _step_traffic(self, state, npc, ego, dt, rep, light_block):
-        """Advance NPC traffic one decision step (IDM). Multi-agent envs
-        step it once per env against all agent rows instead."""
+        """Advance NPC traffic one decision step (IDM, and the expert for the
+        pack's expert slots when rl_agent_ratio > 0). Multi-agent envs step
+        it once per env against all agent rows instead."""
+        expert_actions, expert_mask = self._expert_traffic(state.sidx, npc, ego)
         return idm.step_npcs(
             self.scene, state.sidx, npc, ego, dt=dt, substeps=rep,
             respawn_mode=self.config["traffic_mode"] in ("respawn", "hybrid"),
-            light_block=light_block,
+            expert_actions=expert_actions, expert_mask=expert_mask, light_block=light_block,
         )
+
+    def _expert_traffic(self, sidx, npc, ego):
+        """(expert actions [E,N,2], expert mask [E,N]) of the NPC slots, or
+        (None, None) when no NPC is expert-driven (rl_agent_ratio = 0)."""
+        if self.config["rl_agent_ratio"] <= 0:
+            return None, None
+        lidar = self.config["vehicle_config"]["lidar"]
+        actions = mixed_traffic.expert_npc_actions(
+            self.scene, sidx, npc, ego, self._npc_expert_params,
+            num_lasers=lidar["num_lasers"], distance=lidar["distance"])
+        return actions, self.scene.npc_expert[sidx.long()]
 
     def _pre_reward_update(self, state, loc):
         """Hook after localization and contacts, before reward/done: env

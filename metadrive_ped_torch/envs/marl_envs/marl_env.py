@@ -131,9 +131,14 @@ class MultiAgentMetaDrive(MetaDriveEnv):
             self._rows_to_EA(ego.params.length),
             torch.ones((E, A), dtype=torch.bool, device=self.device),  # corpses keep blocking
         )
+        sidx_env = take0(state.sidx)
+        # expert slots (rl_agent_ratio > 0) see agent 0 as "the ego", as in
+        # the JAX package; the IDM gap search sees every agent
+        expert_actions, expert_mask = self._expert_traffic(sidx_env, npc_env, tree_map(take0, ego))
         npc_env = idm.step_npcs(
-            self.scene, take0(state.sidx), npc_env, None, dt=dt, substeps=rep,
+            self.scene, sidx_env, npc_env, None, dt=dt, substeps=rep,
             respawn_mode=self.config["traffic_mode"] in ("respawn", "hybrid"),
+            expert_actions=expert_actions, expert_mask=expert_mask,
             light_block=lb_env, extra_bodies=agents,
         )
         return tree_map(lambda x: x.repeat_interleave(A, dim=0), npc_env)

@@ -31,11 +31,12 @@ from metadrive_ped_torch.constants import (
     SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE, TerminationState,
 )
 from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core.device import resolve_device
 from metadrive_ped_torch.core.logger import get_logger
 from metadrive_ped_torch.core.scenario_structs import ScenarioScene, ScenarioSimState
 from metadrive_ped_torch.core.structs import PAST_POS_STEPS, EgoState, tree_map
 from metadrive_ped_torch.envs.base import (
-    _TBL_MAT, DEFAULT_CLASS_IDX, VectorEnvLoop, make_vehicle_params, resolve_device,
+    _TBL_MAT, DEFAULT_CLASS_IDX, VectorEnvLoop, make_vehicle_params,
 )
 from metadrive_ped_torch.mapgen.scenario_scene import (
     TRK_SPACING_M, UPATH_QUANT, build_scenario_pack,

@@ -25,6 +25,7 @@ import math
 import torch
 
 from metadrive_ped_torch.constants import OBS_MAX_STEERING
+from metadrive_ped_torch.core import prng
 from metadrive_ped_torch.ops import localization, raycast
 from metadrive_ped_torch.ops.gather import nearest_k_onehot
 from metadrive_ped_torch.ops.math_ops import clip01, heading_vec, wrap_to_pi
@@ -128,7 +129,8 @@ def ego_core(scene, sidx, ego):
 
 
 def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_distance=50.0,
-            num_others=0, npc=None, side_lasers=0, side_distance=50.0,
+            num_others=0, npc=None, gaussian_noise=0.0, dropout_prob=0.0, rng=None,
+            side_lasers=0, side_distance=50.0,
             lane_line_lasers=0, lane_line_distance=20.0, line_table=None,
             random_agent_model=False, t_radius=None, circle_slice=None):
     """Full observation [E, obs_dim]. ego_long/ego_lat are the current-lane
@@ -136,7 +138,9 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
     (pos, heading, length, width, active) [E,T,...] of every lidar-visible
     body (vehicles + traffic objects + participants, the reference lidar
     mask, lidar.py:28); num_others>0 adds nearest-K vehicle features (needs
-    npc).
+    npc). ``gaussian_noise`` / ``dropout_prob`` perturb the lidar cloud with
+    draws from the key ``rng`` (LidarStateObservation
+    _add_noise_to_cloud_points, state_obs.py:234-244).
 
     side_lasers/lane_line_lasers > 0 switch the lateral features to detector
     clouds against the lane-line segments, matching the reference's
@@ -176,9 +180,17 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
     # LidarStateObservation (state_obs.py:210-232)
     if num_lasers > 0:
         t_pos, t_heading, t_len, t_wid, t_active = targets
-        parts.append(raycast.lidar_cloud(
+        cloud = raycast.lidar_cloud(
             ego.pos, ego.heading, num_lasers, lidar_distance,
             t_pos, t_heading, t_len, t_wid, t_active, radius=t_radius,
             circle_slice=circle_slice,
-        ))
+        )
+        if (gaussian_noise > 0 or dropout_prob > 0) and rng is not None:
+            k_noise, k_drop = prng.split(rng).unbind(-2)
+            if gaussian_noise > 0:
+                cloud = torch.clamp(
+                    cloud + gaussian_noise * prng.normal(k_noise, cloud.shape), 0.0, 1.0)
+            if dropout_prob > 0:
+                cloud = torch.where(prng.uniform(k_drop, cloud.shape) < dropout_prob, 0.0, cloud)
+        parts.append(cloud)
     return torch.cat(parts, dim=-1)

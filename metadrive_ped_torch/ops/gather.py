@@ -42,21 +42,26 @@ def vector_lookup(vec, idx):
     return torch.where(ok, rows, torch.zeros_like(rows))
 
 
-def nearest_k_onehot(dist, k):
+def nearest_k_index(dist, k):
     """K rounds of min-reduce with a first-index tie break over the last axis.
 
-    dist [..., N] (inf = invalid). Returns (sel [..., K, N] float one-hot
-    rows, found [..., K] bool).
+    dist [..., N] (inf = invalid). Returns (idx [..., K] int64, found
+    [..., K] bool); where found is False the index is 0 and means nothing.
     """
-    sels, founds = [], []
+    idxs, founds = [], []
     d = dist
-    slots = torch.arange(d.shape[-1], device=d.device)
     for _ in range(k):
-        m = d.min(dim=-1).values
         first = d.argmin(dim=-1)   # torch.argmin returns the first minimum
-        found = torch.isfinite(m)
-        oh = (first[..., None] == slots) & found[..., None]
-        sels.append(oh.float())
+        found = torch.isfinite(d.amin(dim=-1))
+        idxs.append(first)
         founds.append(found)
-        d = torch.where(oh, torch.inf, d)
-    return torch.stack(sels, dim=-2), torch.stack(founds, dim=-1)
+        d = d.scatter(-1, first[..., None], torch.inf)
+    return torch.stack(idxs, dim=-1), torch.stack(founds, dim=-1)
+
+
+def nearest_k_onehot(dist, k):
+    """`nearest_k_index` as (sel [..., K, N] float one-hot rows, found
+    [..., K] bool); a row that found nothing is all zeros."""
+    idx, found = nearest_k_index(dist, k)
+    slots = torch.arange(dist.shape[-1], device=dist.device)
+    return ((idx[..., None] == slots) & found[..., None]).float(), found

@@ -157,8 +157,12 @@ def lane_change_decision(v_kmh, front_gap, front_speed, overtake_timer,
 
 
 def step_npcs(scene, sidx, npc, ego, dt=0.02, substeps=5, respawn_mode=False,
-              light_block=None, extra_bodies=None):
+              expert_actions=None, expert_mask=None, light_block=None, extra_bodies=None):
     """One env-step of all NPCs: IDM + lane change + dynamics + routing.
+
+    expert_actions [E,N,2] + expert_mask [E,N]: MixedPGTrafficManager, the
+    masked slots drive with the expert's actions instead of IDM
+    (traffic_manager.py:403-409; built by ops/mixed_traffic.py).
 
     light_block = (light_lane [E,LG], light_long [E,LG], stop [E,LG]): red
     traffic lights act as a stationary front body at the stop line of their
@@ -209,6 +213,11 @@ def step_npcs(scene, sidx, npc, ego, dt=0.02, substeps=5, respawn_mode=False,
         l_front=l_front, l_front_speed=l_front_speed, l_back=l_back,
         r_front=r_front, r_front_speed=r_front_speed, r_back=r_back,
     )
+    if expert_mask is not None:
+        # expert slots steer themselves: no IDM lane change moves their lane
+        # bookkeeping (it tracks the body, below)
+        go_left = go_left & ~expert_mask
+        go_right = go_right & ~expert_mask
     target = torch.where(go_left, g["left"], torch.where(go_right, g["right"], npc.lane))
     acc_has_front = torch.isfinite(acc_gap)
 
@@ -243,6 +252,10 @@ def step_npcs(scene, sidx, npc, ego, dt=0.02, substeps=5, respawn_mode=False,
     moving = npc.active & npc.released
     steering = torch.clamp(torch.where(moving, steering, 0.0), -1.0, 1.0)
     throttle = torch.clamp(torch.where(moving, acc, 0.0), -1.0, 1.0)
+    if expert_actions is not None and expert_mask is not None:
+        use_exp = expert_mask & moving
+        steering = torch.where(use_exp, expert_actions[..., 0], steering)
+        throttle = torch.where(use_exp, expert_actions[..., 1], throttle)
 
     pos, heading, speed, vel_dir = dynamics.step_vehicle(
         npc.pos, npc.heading, npc.speed, npc.vel_dir, steering, throttle,
@@ -255,11 +268,19 @@ def step_npcs(scene, sidx, npc, ego, dt=0.02, substeps=5, respawn_mode=False,
     vel_dir = torch.where(moving, vel_dir, npc.vel_dir)
 
     # route advance / arrival (traffic_manager.py:94-122)
-    long2, _ = lane_geom.local_coordinates(gt, pos)
+    long2, lat2 = lane_geom.local_coordinates(gt, pos)
     passed = long2 > gt["length"]
     succ = gt["succ"]
     new_lane = torch.where(passed & (succ >= 0), succ, target)
     at_end = passed & (succ < 0) & moving
+    if expert_mask is not None:
+        # expert slots change lanes on their own: the lane follows the body
+        # by its lateral offset (positive = right of the centre line), like
+        # the reference's per-step ray localization of every vehicle
+        drift_r = (lat2 > gt["width"] / 2) & (g["right"] >= 0)
+        drift_l = (lat2 < -gt["width"] / 2) & (g["left"] >= 0)
+        reassign = torch.where(drift_r, g["right"], torch.where(drift_l, g["left"], target))
+        new_lane = torch.where(expert_mask & ~passed & moving, reassign, new_lane)
 
     if respawn_mode:
         # respawn at the original spawn slot when it is clear

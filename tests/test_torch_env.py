@@ -117,15 +117,31 @@ def test_rollout_equals_step_loop():
     assert mean_reward == pytest.approx(float(torch.stack(rewards).mean()))
 
 
+EXPERT_LIDAR = dict(lidar=dict(num_lasers=240, num_others=4))
+
+
 @pytest.mark.parametrize("override", [
     dict(agent_policy="lane_change", discrete_action=True),
-    dict(use_AI_protector=True),
-    dict(manual_control=True),
-    dict(rl_agent_ratio=0.3),
-    dict(image_observation=True),
+    dict(use_AI_protector=True, vehicle_config=EXPERT_LIDAR),
+    dict(manual_control=True, controller=[[0.2, 1.0]] * 2),
+    dict(rl_agent_ratio=0.3, traffic_density=0.3),
     dict(vehicle_config=dict(lidar=dict(gaussian_noise=0.1))),
     dict(vehicle_config=dict(lidar=dict(dropout_prob=0.1))),
-])
+], ids=["lane_change", "AI_protector", "manual_control", "rl_agent_ratio", "gaussian_noise",
+        "dropout_prob"])
+def test_ported_options_step(override):
+    """Each option of the agent-policy slice constructs, resets and steps
+    (tests/test_torch_policies.py and test_torch_mixed_traffic.py hold them
+    against the JAX package)."""
+    env = TorchEnv(dict(dict(num_envs=2, map="S", traffic_density=0.0), **override), device="cpu")
+    obs, _ = env.reset(seed=0)
+    act = np.ones(2, np.int64) if env.config["discrete_action"] else np.tile([0.0, 0.8], (2, 1))
+    for _ in range(3):
+        obs, *_ = env.step(act)
+    assert obs.shape == (2, env.observation_dim) and bool(torch.isfinite(obs).all())
+
+
+@pytest.mark.parametrize("override", [dict(image_observation=True)])
 def test_options_outside_the_slice_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TorchEnv(dict(num_envs=2, map="S", traffic_density=0.0, **override), device="cpu")

@@ -19,6 +19,16 @@ BLOCKED = ("jax", "flax", "metadrive_ped_tpu", "bench")
 
 _BLOCKED_RUN = f"""
 import sys
+
+
+def no_jax_package_files(event, args):
+    # the port keeps its own copy of every file it reads (the expert
+    # checkpoint among them)
+    if event == "open" and "metadrive_ped_tpu" in str(args[0]):
+        raise RuntimeError("read of a file of the JAX package: " + str(args[0]))
+
+
+sys.addaudithook(no_jax_package_files)
 for name in {BLOCKED!r}:
     sys.modules[name] = None  # any import of these raises ImportError
 import numpy as np
@@ -52,6 +62,15 @@ for cls in (MultiAgentRoundaboutEnv, MultiAgentTollgateEnv):
         mobs, *_, minfo = menv.step(np.tile([0.0, 1.0], (2, 4, 1)))
     assert bool(np.isfinite(mobs.numpy()).all()) and tuple(minfo["__all__"].shape) == (2,)
     print("marl", cls.__name__, tuple(mobs.shape))
+from metadrive_ped_torch import MixedTrafficEnv
+xenv = MixedTrafficEnv(dict(num_envs=2, map="S", traffic_density=0.3, rl_agent_ratio=0.5,
+                            use_AI_protector=True, vehicle_config=dict(lidar=dict(num_others=4))),
+                       device="cpu")
+xobs, _ = xenv.reset(seed=0)
+for _ in range(3):
+    xobs, *_ = xenv.step(np.tile([0.0, 1.0], (2, 1)))
+assert bool(np.isfinite(xobs.numpy()).all())
+print("mixed", tuple(xobs.shape))
 import chip_smoke
 loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -73,6 +92,7 @@ def test_port_runs_with_jax_blocked():
         assert f"scenario {name} (3, 165)" in out.stdout
     assert "marl MultiAgentRoundaboutEnv (2, 4, 91)" in out.stdout
     assert "marl MultiAgentTollgateEnv (2, 4, 156)" in out.stdout
+    assert "mixed (2, 275)" in out.stdout
 
 
 def _port_sources():
@@ -107,6 +127,28 @@ def test_no_source_imports_jax_or_the_jax_package():
             assert mod.split(".")[0] not in BLOCKED, (path, mod)
 
 
+def _code_strings(path):
+    """The string constants of a source file that are not docstrings."""
+    tree = ast.parse(open(path).read(), path)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef)) and n.body
+            and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            yield node.value
+
+
+def test_no_source_names_a_jax_package_path():
+    """No code string of the package points into the JAX package (its
+    assets included); chip_smoke.py names the TPU kernel each kernel
+    replaces, as its output line must."""
+    for path in _port_sources():
+        if os.sep + "metadrive_ped_torch" + os.sep not in path:
+            continue
+        for value in _code_strings(path):
+            assert "metadrive_ped_tpu" not in value, (path, value)
+
+
 def test_default_device_needs_cuda(monkeypatch):
     from metadrive_ped_torch import MetaDriveEnv
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -128,7 +170,7 @@ def test_scenario_env_default_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(set(metadrive_ped_torch.__all__)
-                                        - {"MetaDriveEnv", "ScenarioEnv"}))
+                                        - {"MetaDriveEnv", "ScenarioEnv", "CurriculumWrapper"}))
 def test_new_env_classes_default_device_needs_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dict(num_envs=1, num_scenarios=1, traffic_density=0.0)

@@ -4,33 +4,39 @@
     python3 tools/profile_torch_step.py [--num-envs 8192] [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --scenario [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --marl [--steps 10] [--table PATH]
+    python3 tools/profile_torch_step.py --mixed [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --count-ops
 
 Builds the env of chip_smoke.py's main path (the `pg` bench protocol with
 the side and lane-line detectors on) or, with --scenario, each of
 chip_smoke.py's three ScenarioEnv phases at their widths (scenario_replay,
 scenario_reactive, scenario_lines), or, with --marl, its marl (512 envs x
-8 agents), marl_40 and marl_tollgate (256 x 40) phases, warms it up,
+8 agents), marl_40 and marl_tollgate (256 x 40) phases, or, with --mixed,
+its mixed_traffic and ai_protect_noise phases (8192 envs), warms it up,
 then measures:
 
 - wall ms per step (host clock around steps ending in a synchronize);
 - device-busy ms per step and the busy share, from torch.profiler's CUDA
   kernel times over the same number of steps;
 - kernel launches per step;
-- device ms, wall ms and launches of each stage of the step, each run
-  alone on the step's state (the stages sum to about the whole step).
+- device ms, wall ms, launches and peak device memory of each stage of
+  the step, each run alone on the step's state (the stages sum to about
+  the whole step; --mixed splits the expert traffic into the expert
+  observation, the per-NPC lidar and the MLP).
 
 Prints one JSON line per env; with --table, writes the profiler's kernel
 table of the whole step to PATH (one table per env with --scenario or
---marl). The scenario and multi-agent steps go through `rollout` (1 step a
-call), which makes no host sync (ScenarioEnv's `step` reads its coverage
-statistics on the host).
+--marl or --mixed). The scenario, multi-agent and mixed-traffic steps go
+through `rollout` (1 step a call), which makes no host sync (ScenarioEnv's
+`step` reads its coverage statistics on the host); ai_protect_noise goes
+through `step`, where the AI protector reads the previous observation.
 
 --count-ops needs no GPU: it counts the aten operators one step of each of
-chip_smoke.py's PG, safe and multi-agent envs dispatches on the CPU, at a
-few envs (the count does not depend on the number of envs, only on the
-number of agents), and those of the multi-agent respawn alone. On the card
-about 0.83 kernels launch per operator (PERF.md).
+chip_smoke.py's PG, safe, multi-agent, mixed-traffic and AI-protector
+envs dispatches on the CPU, at a few envs (the count does not depend on
+the number of envs, only on the number of agents), and those of the
+multi-agent respawn and of the expert traffic alone. On the card about
+0.83 kernels launch per operator (PERF.md).
 """
 import argparse
 import json
@@ -73,6 +79,8 @@ def main():
                     help="profile chip_smoke.py's ScenarioEnv phases instead of the PG step")
     ap.add_argument("--marl", action="store_true",
                     help="profile chip_smoke.py's marl, marl_40 and marl_tollgate phases")
+    ap.add_argument("--mixed", action="store_true",
+                    help="profile chip_smoke.py's mixed_traffic and ai_protect_noise phases")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the aten operators of one step of each env, on the CPU")
     args = ap.parse_args()
@@ -96,6 +104,8 @@ def main():
         return profile_scenarios(card, args)
     if args.marl:
         return profile_marl(card, args)
+    if args.mixed:
+        return profile_mixed(card, args)
     env = MetaDriveEnv(dict(MAIN_PATH, num_envs=args.num_envs), device="cuda")
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
@@ -164,16 +174,21 @@ def step_profile(card, name, E, step, steps, table):
 
 
 def stage_profile(stages):
-    """device ms, wall ms and launches of each stage, run alone 5 times."""
+    """device ms, wall ms, launches and peak device memory (bytes above what
+    was allocated before it) of each stage, run alone 5 times."""
     import torch
     rows = {}
     for name, fn in stages.items():
         ms, n = kernel_stats(profiled(fn, 5), 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-        rows[name] = dict(device_ms=ms, wall_ms=(time.perf_counter() - t0) * 1e3 / 5, launches=n)
+        rows[name] = dict(device_ms=ms, wall_ms=(time.perf_counter() - t0) * 1e3 / 5, launches=n,
+                          peak_memory_bytes=torch.cuda.max_memory_allocated() - before)
     return rows
 
 
@@ -287,6 +302,78 @@ def profile_marl(card, args):
     return 0
 
 
+def profile_mixed(card, args):
+    """One JSON line for chip_smoke.py's mixed_traffic phase, with the
+    expert traffic split into its stages (the expert observation, the
+    per-NPC lidar, the MLP), and one for its ai_protect_noise phase, whose
+    step goes through `step` (the protector reads the previous observation
+    only there)."""
+    import torch
+
+    import chip_smoke as cs
+    from metadrive_ped_torch import MetaDriveEnv, MixedTrafficEnv
+    from metadrive_ped_torch.core import prng
+    from metadrive_ped_torch.ops import idm, mixed_traffic
+    from metadrive_ped_torch.policies.expert import expert_action
+    env = MixedTrafficEnv(cs.MIXED_TRAFFIC, device="cuda")
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
+    env.reset(seed=0)
+    row = step_profile(card, "mixed_traffic", E, lambda: env.rollout(1, actions=act, collect=()),
+                       args.steps, args.table)
+    st, scene, params = env._state, env.scene, env._npc_expert_params
+    lidar = env.config["vehicle_config"]["lidar"]
+    npc, ego = st.npc, st.ego
+    cand = mixed_traffic.vehicle_candidates(npc, ego)
+    N = npc.lane.shape[1]
+    obs = torch.cat([*mixed_traffic.road_frame_features(scene, st.sidx, npc),
+                     mixed_traffic.nearest_vehicle_features(npc, cand, 4, lidar["distance"]),
+                     mixed_traffic.npc_lidar(npc, cand, lidar["num_lasers"], lidar["distance"])],
+                    dim=-1).reshape(E * N, -1)
+    actions, mask = env._expert_traffic(st.sidx, npc, ego)
+    zeros = torch.zeros(E, device="cuda")
+    stages = {
+        "expert obs: road frame + navigation": lambda: mixed_traffic.road_frame_features(
+            scene, st.sidx, npc),
+        "expert obs: vehicle candidates + nearest-4 features": lambda: (
+            mixed_traffic.nearest_vehicle_features(
+                npc, mixed_traffic.vehicle_candidates(npc, ego), 4, lidar["distance"])),
+        f"per-NPC lidar ({E * N} slots x {lidar['num_lasers']} rays x {N + 1} boxes)":
+            lambda: mixed_traffic.npc_lidar(npc, cand, lidar["num_lasers"], lidar["distance"]),
+        "expert MLP (275-256-256-4, float32)": lambda: expert_action(params, obs),
+        "expert_npc_actions (whole)": lambda: env._expert_traffic(st.sidx, npc, ego),
+        "traffic (IDM, expert slots blended)": lambda: idm.step_npcs(
+            scene, st.sidx, npc, ego, respawn_mode=False, expert_actions=actions,
+            expert_mask=mask),
+        "observation (whole)": lambda: env._observe(st, zeros, zeros),
+    }
+    print(json.dumps(dict(phase="mixed_traffic", card=card, num_envs=E, npc_slots=N,
+                          steps=args.steps, **row, stages=stage_profile(stages))), flush=True)
+    del env, obs, actions
+
+    env = MetaDriveEnv(cs.AI_PROTECT_NOISE, device="cuda")
+    E = env.num_envs
+    act = torch.tensor([0.5, 1.0], device="cuda").expand(E, 2).contiguous()
+    env.reset(seed=0)
+    row = step_profile(card, "ai_protect_noise", E, lambda: env.step(act), args.steps,
+                       args.table)
+    st, prev = env._state, env._last_obs
+    zeros = torch.zeros(E, device="cuda")
+    rays = (E, env.config["vehicle_config"]["lidar"]["num_lasers"])
+
+    def noise_draws():
+        k_noise, k_drop = prng.split(prng.fold_in(env._noise_key, st.step_count.sum())).unbind(-2)
+        return prng.normal(k_noise, rays), prng.uniform(k_drop, rays)
+    stages = {
+        "AI protector (expert on the previous obs)": lambda: env._ai_protect(st, act, prev),
+        "lidar noise draws (key, normal, uniform)": noise_draws,
+        "observation with lidar noise (whole)": lambda: env._observe(st, zeros, zeros),
+    }
+    print(json.dumps(dict(phase="ai_protect_noise", card=card, num_envs=E, steps=args.steps,
+                          **row, stages=stage_profile(stages))), flush=True)
+    return 0
+
+
 def count_ops():
     """Aten operators of one step of chip_smoke.py's envs on the CPU."""
     import torch
@@ -311,14 +398,21 @@ def count_ops():
             ("safe", port.SafeMetaDriveEnv, dict(cs.SAFE, num_envs=16)),
             ("marl", port.MultiAgentRoundaboutEnv, dict(cs.MARL, num_envs=2)),
             ("marl_40", port.MultiAgentRoundaboutEnv, dict(cs.MARL_40, num_envs=2)),
-            ("marl_tollgate", port.MultiAgentTollgateEnv, dict(cs.MARL_TOLLGATE, num_envs=2)))
+            ("marl_tollgate", port.MultiAgentTollgateEnv, dict(cs.MARL_TOLLGATE, num_envs=2)),
+            ("mixed_traffic", port.MixedTrafficEnv, dict(cs.MIXED_TRAFFIC, num_envs=16)),
+            ("ai_protect_noise", port.MetaDriveEnv, dict(cs.AI_PROTECT_NOISE, num_envs=16)))
     for name, cls, cfg in envs:
         env = cls(cfg, device="cpu")
         act = torch.tensor([[0.0, 1.0]] * env.num_envs)
         env.reset(seed=0)
         env.rollout(3, actions=act, collect=())
-        row = dict(env=name, rows=env.num_envs,
-                   step_ops=ops(lambda: env.rollout(1, actions=act, collect=())))
+        # the AI protector acts only through `step`
+        step = ((lambda: env.step(act)) if cfg.get("use_AI_protector")
+                else (lambda: env.rollout(1, actions=act, collect=())))
+        row = dict(env=name, rows=env.num_envs, step_ops=ops(step))
+        if hasattr(env, "_npc_expert_params"):
+            st = env._state
+            row["expert_traffic_ops"] = ops(lambda: env._expert_traffic(st.sidx, st.npc, st.ego))
         if hasattr(env, "_respawn"):
             every = torch.ones(env.num_envs, dtype=torch.bool)
             row["respawn_ops"] = ops(lambda: env._respawn(env._state, every))
