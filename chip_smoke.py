@@ -89,11 +89,53 @@ needs one CUDA device, and prints one JSON line per phase:
                  bidirection scenes (the multi-agent paths through the
                  kernel that no other phase drives)
 
+18. marl_parking_lot, marl_racing, marl_tinyinter  the three scenes no
+                 other phase drives: each first against the CPU (4 envs x
+                 the scene's default agents, 20 steps, a marl_card_vs_cpu
+                 line), then as 11 at 256 envs for 100 steps
+19. mix_waymo_pg MixWaymoPGEnv at 4096 envs over the synthetic scenes of 6
+                 and a PG map 3, both with the replay protocol's detectors:
+                 the kernel against its plain version on each half, then 4
+                 resets x 50 steps (both suites must run; one launch at each
+                 reset and each step)
+20. opendrive    a PG env on the two-road OpenDrive map at 8192 envs
+                 (traffic 0.2, side 160, lane-line 12): the kernel against
+                 its plain version on the map's lines, then as 4, and the
+                 card against the CPU at 32 envs for 20 steps
+21. snapshot_replay  the main path at 8192 envs: snapshot at step 50, 20
+                 steps, restore, the same 20 steps again (obs, reward and
+                 state bit-equal); set_break_down on the even rows (their
+                 speed falls); record_episode(20) at 256 envs, replay of
+                 frame 4 and one step equal to frame 5; a dump_all_maps
+                 reload with a bit-equal pack
+22. ppo_train    the train_ppo example's configuration at the `pg` width
+                 (8192 envs, map=3, 64 scenarios, traffic 0.05, lidar 240
+                 and 4 neighbours): 3 iterations of a 128-step collection
+                 through `rollout` with the sampling policy (one step under
+                 set_sync_debug_mode("error")), GAE, and a PPO update of
+                 4 epochs x 8 minibatches of 131,072 rows; one line per
+                 iteration (collect env-steps/s, update ms, samples/s, loss,
+                 parameter change) and a summary (finite losses, parameters
+                 that moved, TF32 off; launches and device ms of a
+                 collection step and of an update minibatch, from the
+                 profiler). It runs last: after its profiled update, the
+                 profiles of later phases saw no launch of the detector
+                 kernel
+23. ppo_card_vs_cpu  one update (1 epoch, 2 minibatches) of 131,072 rows of
+                 the last batch from the same parameters and permutation on
+                 the card and on the CPU: the first minibatch's gradients
+                 per leaf within 1e-5 of the leaf's largest gradient, a
+                 limit that the card's gradients with TF32 on (the control)
+                 must exceed; the parameters within 1e-5 except where
+                 Adam's first step amplifies the gradients' rounding
+                 difference past 5e-6 (gradients near zero), at most 16
+                 such elements
+
 The expert's products need float32 matmuls in full precision: the device
 phase asserts that TF32 is off. Then the kernels line (launches summed over
-the env phases 4, 6-8, 10-13 and 15-16), the card's name and power limit,
-and last {"ok": true, "device": {...}}. Any failed phase raises and exits
-non-zero.
+the env phases 4, 6-8, 10-13, 15-16 and 18-21), the card's name and
+power limit, and last {"ok": true, "device": {...}}. Any failed phase
+raises and exits non-zero.
 """
 import json
 import math
@@ -156,6 +198,29 @@ SLICE4_CPU = (
     ("MultiAgentBottleneckEnv", dict(num_envs=4, num_agents=8), (0.0, 1.0), MULTI),
     ("MultiAgentBidirectionEnv", dict(num_envs=4, num_agents=8), (0.0, 1.0), MULTI),
 )
+# The trainer's surface: the train_ppo example's configuration at the `pg`
+# width (bench.py:344, 8192 envs); MixWaymoPGEnv over the synthetic scenes and
+# a PG map 3 with the replay protocol's detectors (bench.py:57-70); a PG env
+# on the two-road OpenDrive map with the main path's detectors;
+# snapshot/record/replay on the main path; the three multi-agent scenes no
+# other phase drives, at 256 envs.
+PPO_ENVS, PPO_SCENARIOS, PPO_ROLLOUT, PPO_EPOCHS, PPO_MINIBATCHES, PPO_ITERS = 8192, 64, 128, 4, 8, 3
+PPO_CPU_ROWS = 131072
+# ppo_card_vs_cpu: the card's and the CPU's float32 gradients round apart.
+# Per leaf, max|g_card - g_cpu| / max|g_cpu| stays under PPO_GRAD_RTOL, which
+# the same card gradients with TF32 on (the control) must exceed. Adam's first
+# step, lr * g / (|g| + 1e-8), keeps the rounding difference small except where
+# g is near zero: at most PPO_EXEMPT_CAP such elements are exempt from PPO_TOL.
+PPO_LR, PPO_TOL, PPO_GRAD_RTOL, PPO_EXEMPT_CAP = 3e-4, 1e-5, 1e-5, 16
+MIX_WAYMO_PG = dict(num_envs=4096, map=3, vehicle_config=SCENARIO_REPLAY["vehicle_config"])
+MIX_RESETS, MIX_STEPS = 4, 50
+OPENDRIVE = dict(num_envs=8192, num_scenarios=1, traffic_density=0.2, horizon=1000,
+                 vehicle_config=MAIN_PATH["vehicle_config"])
+SNAP_AT, SNAP_STEPS, BREAK_STEPS, RECORD_ENVS, RECORD_STEPS = 50, 20, 40, 256, 20
+UNTRIED_SCENES = (("marl_parking_lot", "MultiAgentParkingLotEnv"),
+                  ("marl_racing", "MultiAgentRacingEnv"),
+                  ("marl_tinyinter", "MultiAgentTinyInter"))
+UNTRIED_ENVS, UNTRIED_STEPS = 256, 100
 EXPORT_STEPS = 100
 DEVICE = "cuda"
 STEPS = 200
@@ -393,12 +458,11 @@ def scenario_kernel_args(env):
             side["distance"], side["distance"], *env._line_table)
 
 
-def drive(env, collect, mid=None):
-    """Reset and STEPS full-throttle steps through `rollout`: the first
-    step under set_sync_debug_mode("error"), the rate over steps
-    TIMED_FROM-STEPS. Returns (the collected fields [STEPS, rows], the
-    seconds of the timed window, kernel launches, mid(env) after the warm
-    steps)."""
+def drive(env, collect, mid=None, steps=STEPS):
+    """Reset and ``steps`` full-throttle steps through `rollout`: the first
+    step under set_sync_debug_mode("error"), the rate over the second half.
+    Returns (the collected fields [steps, rows], the seconds of the timed
+    window, kernel launches, mid(env) after the warm steps)."""
     import torch
 
     from metadrive_ped_torch.ops import ray_segment as rs
@@ -411,11 +475,11 @@ def drive(env, collect, mid=None):
         first, _ = env.rollout(1, actions=act, collect=collect)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    warm, _ = env.rollout(TIMED_FROM - 1, actions=act, collect=collect)
+    warm, _ = env.rollout(steps // 2 - 1, actions=act, collect=collect)
     at_mid = mid(env) if mid is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    timed, _ = env.rollout(STEPS - TIMED_FROM, actions=act, collect=collect)
+    timed, _ = env.rollout(steps - steps // 2, actions=act, collect=collect)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     outs = {k: torch.cat([first[k], warm[k], timed[k]]) for k in collect}
@@ -491,19 +555,21 @@ def drive_safe(card):
     return row
 
 
-def drive_marl(phase, env, card, expected_launches):
+def drive_marl(phase, env, card, expected_launches, steps=STEPS):
     """A multi-agent phase: env-steps/s and agent-steps/s, agent
     terminations and respawns (rows whose episode restarts at a spawn slot;
-    no env resets before the horizon of 1000) over the 200 steps."""
+    no env resets before the horizon of 1000) over ``steps`` steps."""
     import torch
     rows, envs = env.num_envs, env.num_marl_envs
-    outs, seconds, launches, _ = drive(env, ("terminated", "truncated", "step_count"))
+    outs, seconds, launches, _ = drive(env, ("terminated", "truncated", "step_count"),
+                                       steps=steps)
     respawns = int((outs["step_count"] == 0).sum())
     obs_shape, obs_ok = check_obs(env)
+    timed = steps - steps // 2
     row = dict(phase=phase, num_envs=envs, agents_per_env=env.agents_per_env, rows=rows,
-               steps=STEPS, rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
-               env_steps_per_s=envs * (STEPS - TIMED_FROM) / seconds,
-               agent_steps_per_s=rows * (STEPS - TIMED_FROM) / seconds, card=card,
+               steps=steps, rate_window=f"steps {steps // 2}-{steps}", seconds=seconds,
+               env_steps_per_s=envs * timed / seconds,
+               agent_steps_per_s=rows * timed / seconds, card=card,
                obs_shape=obs_shape, obs_ok=obs_ok,
                agent_terminations=int(outs["terminated"].sum()), respawns=respawns,
                ray_segment_launches=launches, expected_launches=expected_launches,
@@ -544,19 +610,25 @@ def card_vs_cpu(make_env, cfg, steps=20, state_ints=(), action=(0.0, 1.0)):
     return obs_err, rew_err, flag_mismatches
 
 
-def step_launches(env, act, steps=2):
-    """(kernel launches, device busy ms) per `rollout` step, from the
-    profiler's CUDA kernel records over ``steps`` steps."""
+def kernel_profile(fn, calls):
+    """(kernel launches, device busy ms) per call of fn(), from the
+    profiler's CUDA kernel records over one call of fn that makes
+    ``calls`` calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        env.rollout(steps, actions=act, collect=())
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return (sum(e.count for e in kernels) / steps,
-            sum(e.self_device_time_total for e in kernels) / 1e3 / steps)
+    return (sum(e.count for e in kernels) / calls,
+            sum(e.self_device_time_total for e in kernels) / 1e3 / calls)
+
+
+def step_launches(env, act, steps=2):
+    """(kernel launches, device busy ms) per `rollout` step."""
+    return kernel_profile(lambda: env.rollout(steps, actions=act, collect=()), steps)
 
 
 def drive_mixed(card):
@@ -656,6 +728,384 @@ def detector_args(env):
     side, lane = vc["side_detector"], vc["lane_line_detector"]
     return (st.ego.pos.contiguous(), st.sidx, fan(side["num_lasers"]), fan(lane["num_lasers"]),
             side["distance"], lane["distance"], *env._line_table)
+
+
+
+def tree_equal(a, b):
+    """Whether two numpy trees (dataclasses or dicts of arrays, as
+    `snapshot` and `record_episode` give) are bit-equal leaf by leaf."""
+    import dataclasses
+
+    import numpy as np
+    if dataclasses.is_dataclass(a):
+        return all(tree_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
+
+
+def ppo_minibatch_flop(rows, obs_dim, hidden=256):
+    """Matrix-product FLOPs of one PPO minibatch step: the forward of the
+    policy (obs -> 256 -> 256 -> 4) and value (obs -> 256 -> 256 -> 1) MLPs
+    and their backward (two products per forward product, less the input
+    gradient of the first layers, which autograd skips)."""
+    macs = obs_dim * hidden + hidden * hidden
+    fwd = 2 * rows * (2 * macs + hidden * 4 + hidden * 1)
+    return fwd + 2 * fwd - 2 * rows * 2 * obs_dim * hidden
+
+
+def drive_ppo(card):
+    """The train_ppo example's configuration at the `pg` width: PPO_ITERS
+    iterations of a PPO_ROLLOUT-step collection through `rollout` with the
+    sampling policy, GAE and a PPO update of PPO_EPOCHS x PPO_MINIBATCHES
+    Adam steps. One line per iteration; returns the last batch and the
+    trained parameters for ppo_card_vs_cpu."""
+    import types
+
+    import torch
+
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.core import prng
+    from metadrive_ped_torch.examples import train_ppo as ppo
+    from metadrive_ped_torch.ops import ray_segment as rs
+    t0 = time.perf_counter()
+    env = MetaDriveEnv(ppo.env_config(PPO_ENVS, PPO_SCENARIOS), device=DEVICE)
+    build_s = time.perf_counter() - t0
+    args = types.SimpleNamespace(rollout=PPO_ROLLOUT, epochs=PPO_EPOCHS,
+                                 minibatches=PPO_MINIBATCHES, lr=PPO_LR, gamma=0.99, lam=0.95,
+                                 clip=0.2)
+    rs.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    env.reset(seed=0)
+    rng = prng.prng_key(0, DEVICE)
+    module = ppo.PolicyValue(env.observation_dim, key=rng, device=DEVICE)
+    optimizer = torch.optim.Adam(module.parameters(), lr=args.lr)
+    generator = torch.Generator(device=DEVICE).manual_seed(0)
+    # one step of the sampling policy must not synchronise with the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env.rollout(1, policy_fn=ppo.sample_policy(module, prng.split(rng, 3)[2]),
+                    collect=("obs",))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    start = [p.detach().clone() for p in module.parameters()]
+    stats = []
+    for it in range(PPO_ITERS):
+        keys = prng.split(rng, 3)
+        rng = keys[0]
+        before = [p.detach().clone() for p in module.parameters()]
+        row, batch = ppo.train_iteration(env, module, optimizer, keys[1], args, generator)
+        row["param_max_abs_change"] = max(float((p.detach() - q).abs().max())
+                                          for p, q in zip(module.parameters(), before))
+        emit(phase="ppo_train", iteration=it, num_envs=PPO_ENVS, card=card, **row)
+        stats.append(row)
+    # where the time goes: a collection step and an update minibatch
+    policy = ppo.sample_policy(module, rng)
+    t0 = time.perf_counter()
+    collect_launches, collect_busy = kernel_profile(
+        lambda: env.rollout(2, policy_fn=policy, collect=()), 2)
+    collect_wall = (time.perf_counter() - t0) * 1e3 / 2
+    mb_rows = [x[:batch[0].shape[0] // PPO_MINIBATCHES] for x in batch]
+    t0 = time.perf_counter()
+    update_launches, update_busy = kernel_profile(
+        lambda: ppo.ppo_update(module, optimizer, mb_rows, 1, 1, args.clip), 1)
+    update_wall = (time.perf_counter() - t0) * 1e3
+    obs_b = batch[0]
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(module.parameters(), start))
+    summary = dict(phase="ppo_train", summary=True, num_envs=PPO_ENVS, scenarios=env.num_scenarios,
+                   env_build_s=build_s, rollout=PPO_ROLLOUT, epochs=PPO_EPOCHS,
+                   minibatches=PPO_MINIBATCHES, iterations=PPO_ITERS,
+                   batch_rows=int(obs_b.shape[0]), obs_dim=int(obs_b.shape[1]),
+                   rollout_obs_bytes=obs_b.numel() * obs_b.element_size(),
+                   minibatch_rows=int(obs_b.shape[0]) // PPO_MINIBATCHES,
+                   param_max_abs_change_total=moved, host_sync_checked_step=1,
+                   collect_step=dict(launches=collect_launches, device_busy_ms=collect_busy,
+                                     profiled_wall_ms=collect_wall),
+                   update_minibatch=dict(launches=update_launches, device_busy_ms=update_busy,
+                                         profiled_wall_ms=update_wall,
+                                         matmul_flop=ppo_minibatch_flop(
+                                             batch[0].shape[0] // PPO_MINIBATCHES,
+                                             batch[0].shape[1])),
+                   matmul_precision=torch.get_float32_matmul_precision(),
+                   matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                   ray_segment_launches=rs.launches, expected_launches=0,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(), card=card)
+    emit(**summary)
+    if not all(math.isfinite(r["loss"]) for r in stats):
+        raise AssertionError(f"ppo_train: a loss is not finite: {[r['loss'] for r in stats]}")
+    if not moved > 0 or not all(r["param_max_abs_change"] > 0 for r in stats):
+        raise AssertionError("ppo_train: the parameters did not move")
+    if summary["matmul_allow_tf32"] or summary["matmul_precision"] != "highest":
+        raise AssertionError("ppo_train: float32 matmuls must run without TF32")
+    if rs.launches != 0:
+        raise AssertionError(f"ppo_train: the detectors are off, yet the kernel launched "
+                             f"{rs.launches} times")
+    return ppo.params_to_jax(module), batch, summary
+
+
+def adam_first_step(g):
+    """The first step of torch.optim.Adam / optax.adam per unit of lr:
+    g / (|g| + eps), eps = 1e-8."""
+    import numpy as np
+    return g / (np.abs(g) + 1e-8)
+
+
+def ppo_card_vs_cpu(params, batch):
+    """One PPO update (1 epoch, 2 minibatches) of the first PPO_CPU_ROWS rows
+    of ppo_train's last batch, from the same parameters and permutation on
+    the card and on the CPU. The first minibatch's gradients must agree per
+    leaf within PPO_GRAD_RTOL of the leaf's largest CPU gradient, and the
+    card's gradients with TF32 on must not: a check that a TF32 update
+    would pass could not guard the precision. The parameters must agree
+    within PPO_TOL except where Adam's first step turns the two gradients'
+    rounding difference into a larger step difference (lr * |g / (|g| +
+    eps) - g' / (|g'| + eps)| > PPO_TOL / 2: gradients near zero), and at
+    most PPO_EXEMPT_CAP elements may be exempt so."""
+    import numpy as np
+    import torch
+
+    from metadrive_ped_torch.examples import train_ppo as ppo
+    rows = [x[:PPO_CPU_ROWS] for x in batch]
+    cpu_rows = [x.cpu() for x in rows]
+    perm = torch.randperm(PPO_CPU_ROWS, generator=torch.Generator().manual_seed(1))
+    first = perm[:PPO_CPU_ROWS // 2]
+
+    def first_grads(data):
+        probe = ppo.params_from_jax(params, device=data[0].device)
+        idx = first.to(data[0].device)
+        ppo.ppo_loss(probe, *(x[idx] for x in data), 0.2).backward()
+        return {k: getattr(probe, k).grad.cpu().numpy() for k in params}
+
+    grads = {DEVICE: first_grads(rows), "cpu": first_grads(cpu_rows)}
+    torch.set_float32_matmul_precision("high")
+    tf32 = first_grads(rows)
+    torch.set_float32_matmul_precision("highest")
+    out = {}
+    for dev, data in ((DEVICE, rows), ("cpu", cpu_rows)):
+        module = ppo.params_from_jax(params, device=dev)
+        opt = torch.optim.Adam(module.parameters(), lr=PPO_LR)
+        loss = ppo.ppo_update(module, opt, data, epochs=1, minibatches=2, clip=0.2, perm=perm)
+        out[dev] = (float(loss), ppo.params_to_jax(module))
+    tiny = np.finfo(np.float32).tiny
+    size = {k: float(np.abs(g).max()) for k, g in grads["cpu"].items()}
+
+    def rel_err(card):
+        return {k: float(np.abs(card[k] - grads["cpu"][k]).max()) / max(size[k], tiny)
+                for k in params}
+
+    def exempt(card):
+        return {k: PPO_LR * np.abs(adam_first_step(card[k]) - adam_first_step(grads["cpu"][k]))
+                > PPO_TOL / 2 for k in params}
+
+    grad_rel, tf32_rel = rel_err(grads[DEVICE]), rel_err(tf32)
+    ill = exempt(grads[DEVICE])
+    n_exempt = sum(int(m.sum()) for m in ill.values())
+    diff = {k: np.abs(out[DEVICE][1][k] - out["cpu"][1][k]) for k in params}
+    err = max(float(np.where(ill[k], 0, d).max()) for k, d in diff.items())
+    emit(phase="ppo_card_vs_cpu", rows=PPO_CPU_ROWS, epochs=1, minibatches=2,
+         loss_card=out[DEVICE][0], loss_cpu=out["cpu"][0], grad_max_abs_by_name=size,
+         grad_max_abs_err=max(float(np.abs(grads[DEVICE][k] - grads["cpu"][k]).max())
+                              for k in params),
+         grad_rel_err=max(grad_rel.values()), grad_rel_err_by_name=grad_rel,
+         grad_rel_tol=PPO_GRAD_RTOL,
+         tf32_control=dict(grad_rel_err=max(tf32_rel.values()), grad_rel_err_by_name=tf32_rel,
+                           exempt_elements=sum(int(m.sum()) for m in exempt(tf32).values())),
+         param_max_abs_err=err, tol=PPO_TOL, exempt_elements=n_exempt,
+         exempt_cap=PPO_EXEMPT_CAP, elements=sum(d.size for d in diff.values()),
+         param_max_abs_err_all=max(float(d.max()) for d in diff.values()),
+         param_max_abs_err_by_name={k: float(d.max()) for k, d in diff.items()},
+         param_max_abs_step=max(float(np.abs(out["cpu"][1][k] - params[k]).max())
+                                for k in params))
+    if not max(grad_rel.values()) <= PPO_GRAD_RTOL < max(tf32_rel.values()):
+        raise AssertionError(f"ppo_card_vs_cpu: gradients differ by {max(grad_rel.values())} "
+                             f"of their size, {max(tf32_rel.values())} with TF32 on; the limit "
+                             f"{PPO_GRAD_RTOL} must lie between")
+    if not (err <= PPO_TOL and n_exempt <= PPO_EXEMPT_CAP):
+        raise AssertionError(f"ppo_card_vs_cpu: parameters differ by {err}, with {n_exempt} "
+                             f"elements exempt (cap {PPO_EXEMPT_CAP})")
+
+
+def drive_mix(card, synthetic):
+    """MixWaymoPGEnv at 4096 envs over the synthetic scenes and a PG map 3,
+    both with the replay protocol's detectors: the kernel against its plain
+    version on each half, then MIX_RESETS resets x MIX_STEPS steps through
+    `rollout` (one launch at each reset and each step)."""
+    import torch
+
+    from metadrive_ped_torch import MixWaymoPGEnv
+    from metadrive_ped_torch.ops import ray_segment as rs
+    env = MixWaymoPGEnv(dict(MIX_WAYMO_PG, scenario_data=synthetic), device=DEVICE)
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    rows = []
+    env.pg_env.reset(seed=0)
+    rows.append(kernel_case("mix_waymo_pg_pg", detector_args(env.pg_env), iters=20))
+    env.scenario_env.reset(seed=0)
+    rows.append(kernel_case("mix_waymo_pg_scenario", scenario_kernel_args(env.scenario_env),
+                            iters=20))
+    torch.cuda.reset_peak_memory_stats()
+    rs.launches = 0
+    suites, seconds, finished = [], 0.0, torch.zeros((), dtype=torch.int64, device=DEVICE)
+    for i in range(MIX_RESETS):
+        env.reset(seed=i)
+        suites.append("scenario" if env.is_current_real_data else "pg")
+        if i == 0:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                env.rollout(1, actions=act, collect=())
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, _ = env.rollout(MIX_STEPS - (i == 0), actions=act, collect=("terminated", "truncated"))
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        finished += (outs["terminated"] | outs["truncated"]).sum()
+    launches = rs.launches
+    obs_shape, obs_ok = check_obs(env._active)
+    expected = MIX_RESETS * (MIX_STEPS + 1)
+    row = dict(phase="mix_waymo_pg", num_envs=E, resets=MIX_RESETS, steps_per_reset=MIX_STEPS,
+               suites=suites, seconds=seconds,
+               env_steps_per_s=E * (MIX_RESETS * MIX_STEPS - 1) / seconds, card=card,
+               obs_shape=obs_shape, obs_ok=obs_ok, episodes_finished=int(finished),
+               pg_speed_init="randint(0, 10) from RandomState(0)",
+               ray_segment_launches=launches, expected_launches=expected,
+               kernel_max_abs_err=max(r["max_abs_err"] for r in rows), host_sync_checked_step=1,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**row)
+    if set(suites) != {"scenario", "pg"}:
+        raise AssertionError(f"mix_waymo_pg: both suites must run, got {suites}")
+    if not obs_ok:
+        raise AssertionError("mix_waymo_pg: observation out of shape or range")
+    if launches != expected:
+        raise AssertionError(f"mix_waymo_pg: the kernel launched {launches} times, "
+                             f"expected {expected}")
+    if row["kernel_max_abs_err"] != 0.0:
+        raise AssertionError("mix_waymo_pg: the kernel differs from its plain version")
+    return rows, launches
+
+
+def drive_opendrive(card, xodr_path):
+    """A PG env on the two-road OpenDrive map at the main path's width: the
+    kernel against its plain version on the map's line table, `drive`, then
+    the card against the CPU at 32 envs."""
+    import torch
+
+    from metadrive_ped_torch import MetaDriveEnv
+    cfg = dict(OPENDRIVE, map_config=dict(xodr_file=xodr_path))
+    env = MetaDriveEnv(cfg, device=DEVICE)
+    E = env.num_envs
+    env.reset(seed=0)
+    krow = kernel_case("opendrive", detector_args(env), iters=20)
+    if krow["hits"][0] == 0 or krow["max_abs_err"] != 0.0:
+        raise AssertionError("opendrive: the side detector saw no line, or the kernel differs")
+    outs, seconds, launches, _ = drive(env, ("terminated", "truncated"))
+    obs_shape, obs_ok = check_obs(env)
+    table, counts = env._line_table
+    del env
+    obs_err, rew_err, flag_mismatches = card_vs_cpu(MetaDriveEnv, dict(cfg, num_envs=32))
+    row = dict(phase="opendrive", num_envs=E, steps=STEPS,
+               rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
+               env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
+               obs_shape=obs_shape, obs_ok=obs_ok,
+               episodes_finished=int((outs["terminated"] | outs["truncated"]).sum()),
+               n_cont=counts[:, 0].tolist(), line_table_rows=int(table.shape[1]),
+               ray_segment_launches=launches, expected_launches=STEPS + 1,
+               kernel_max_abs_err=krow["max_abs_err"], host_sync_checked_step=1,
+               card_vs_cpu=dict(num_envs=32, steps=20, obs_max_abs_err=obs_err,
+                                reward_max_abs_err=rew_err, flag_mismatches=flag_mismatches,
+                                tol=CPU_TOL),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**row)
+    if not obs_ok:
+        raise AssertionError("opendrive: observation out of shape or range")
+    if launches != STEPS + 1:
+        raise AssertionError(f"opendrive: the kernel launched {launches} times, "
+                             f"expected {STEPS + 1}")
+    if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
+        raise AssertionError("opendrive: the card and the CPU disagree")
+    return krow, launches
+
+
+def drive_snapshot(card):
+    """Snapshot, restore, record, replay, fault injection and map dumps on
+    the card with the detectors on: a snapshot at step SNAP_AT, SNAP_STEPS
+    steps, restore, the same steps again (obs, reward and state bit-equal);
+    record_episode at RECORD_ENVS envs, replay of frame 4 and one step equal
+    to frame 5; set_break_down on half the rows (their speed falls); a
+    dump_all_maps reload with a bit-equal pack."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.core.structs import tree_map
+    from metadrive_ped_torch.ops import ray_segment as rs
+    rs.launches = 0
+    env = MetaDriveEnv(MAIN_PATH, device=DEVICE)
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    env.reset(seed=0)
+    env.rollout(SNAP_AT, actions=act, collect=())
+    snap = env.snapshot()
+    runs = []
+    for _ in range(2):
+        outs, _ = env.rollout(SNAP_STEPS, actions=act, collect=("obs", "reward", "terminated"))
+        runs.append(({k: v.cpu().numpy() for k, v in outs.items()}, env.snapshot()))
+        env.restore(snap)
+    round_trip = dict(obs=bool(np.array_equal(runs[0][0]["obs"], runs[1][0]["obs"])),
+                      reward=bool(np.array_equal(runs[0][0]["reward"], runs[1][0]["reward"])),
+                      state=tree_equal(runs[0][1], runs[1][1]),
+                      restored_state=tree_equal(env.snapshot(), snap))
+    done_rows = int(runs[0][0]["terminated"].sum())
+    # fault injection on the even rows
+    broken = torch.arange(E, device=DEVICE) % 2 == 0
+    speed0 = env._state.ego.speed.clone()
+    env.set_break_down(broken)
+    env.rollout(BREAK_STEPS, actions=act, collect=())
+    speed1 = env._state.ego.speed
+    fault = dict(rows=int(broken.sum()),
+                 broken_mean_speed_before=float(speed0[broken].mean()),
+                 broken_mean_speed_after=float(speed1[broken].mean()),
+                 healthy_mean_speed_before=float(speed0[~broken].mean()),
+                 healthy_mean_speed_after=float(speed1[~broken].mean()))
+    launches = rs.launches
+    del env
+    # record and replay at RECORD_ENVS envs
+    rs.launches = 0
+    small = MetaDriveEnv(dict(MAIN_PATH, num_envs=RECORD_ENVS), device=DEVICE)
+    small.reset(seed=0)
+    sact = act[:RECORD_ENVS]
+    rec = small.record_episode(RECORD_STEPS, actions=sact)
+    small.replay_frame(rec, 4)
+    obs5, rew5, *_ = small.step(sact)
+    replay = dict(obs=bool(np.array_equal(obs5.cpu().numpy(), rec["obs"][5])),
+                  reward=bool(np.array_equal(rew5.cpu().numpy(), rec["reward"][5])),
+                  state=tree_equal(small.snapshot(), tree_map(lambda x: x[5], rec["state"])))
+    with tempfile.TemporaryDirectory() as d:
+        path = small.dump_all_maps(os.path.join(d, "maps.pkl"))
+        reloaded = MetaDriveEnv(dict(MAIN_PATH, num_envs=RECORD_ENVS, map_pack_file=path),
+                                device=DEVICE)
+    pack_equal = small._pack.keys() == reloaded._pack.keys() and all(
+        np.array_equal(small._pack[k], reloaded._pack[k]) for k in small._pack)
+    launches += rs.launches
+    row = dict(phase="snapshot_replay", num_envs=E, snapshot_at=SNAP_AT, steps_after=SNAP_STEPS,
+               done_rows_in_window=done_rows, round_trip_bit_equal=round_trip,
+               record_envs=RECORD_ENVS, record_steps=RECORD_STEPS, replay_bit_equal=replay,
+               break_down=dict(fault, steps=BREAK_STEPS), dump_reload_pack_equal=pack_equal,
+               ray_segment_launches=launches, card=card)
+    emit(**row)
+    if not all(round_trip.values()):
+        raise AssertionError(f"snapshot_replay: the restored run differs: {round_trip}")
+    if not all(replay.values()):
+        raise AssertionError(f"snapshot_replay: the replayed frame differs: {replay}")
+    if not fault["broken_mean_speed_after"] < fault["broken_mean_speed_before"]:
+        raise AssertionError(f"snapshot_replay: broken-down rows did not slow down: {fault}")
+    if not pack_equal:
+        raise AssertionError("snapshot_replay: the reloaded pack differs")
+    return launches
 
 
 def main():
@@ -836,6 +1286,36 @@ def main():
              flag_mismatches=flag_mismatches)
         if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
             raise AssertionError(f"{name} {cfg}: the card and the CPU disagree")
+
+    # ---- the trainer's surface -------------------------------------------
+    for phase, name in UNTRIED_SCENES:
+        cls = getattr(port, name)
+        obs_err, rew_err, flag_mismatches = card_vs_cpu(cls, dict(num_envs=4), state_ints=MULTI)
+        emit(phase="marl_card_vs_cpu", env=name, num_envs=4, steps=20, obs_max_abs_err=obs_err,
+             reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
+        if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+        env = cls(dict(num_envs=UNTRIED_ENVS), device=DEVICE)
+        expected = UNTRIED_STEPS + 1 if env._line_table is not None else 0
+        phase_launches[phase] = drive_marl(phase, env, card, expected_launches=expected,
+                                           steps=UNTRIED_STEPS)["ray_segment_launches"]
+        del env
+    mix_rows, phase_launches["mix_waymo_pg"] = drive_mix(card, synthetic)
+    rows += mix_rows
+    import tempfile
+
+    from metadrive_ped_torch.mapgen.opendrive import TWO_ROAD_XODR
+    with tempfile.TemporaryDirectory() as d:
+        xodr_path = os.path.join(d, "two_road.xodr")
+        with open(xodr_path, "w") as f:
+            f.write(TWO_ROAD_XODR)
+        od_row, phase_launches["opendrive"] = drive_opendrive(card, xodr_path)
+    rows.append(od_row)
+    phase_launches["snapshot_replay"] = drive_snapshot(card)
+    params, batch, _ = drive_ppo(card)
+    phase_launches["ppo_train"] = 0
+    ppo_card_vs_cpu(params, batch)
+    del batch
 
     # ---- the kernels line ------------------------------------------------
     print(json.dumps({"kernels": [dict(

@@ -9,7 +9,10 @@ replays logged ScenarioDescriptions (scenario/); the multi-agent envs fold
 their agents into rows and take and give ``[E, A, ...]`` arrays.
 `MixedTrafficEnv` drives a share of the NPCs with the PPO expert
 (policies/expert.py), and `CurriculumWrapper` widens an env's scenario band
-as its success rate grows.
+as its success rate grows. `MixWaymoPGEnv` alternates scenario replay and
+PG episodes between resets; `createGymWrapper` gives any env class the
+legacy gym API. The PG and multi-agent envs carry gymnasium spaces,
+fault injection (`set_break_down`) and snapshot/record/replay.
 
     >>> from metadrive_ped_torch import MetaDriveEnv
     >>> env = MetaDriveEnv(dict(num_envs=1024, map="SCS"), device="cuda")
@@ -17,21 +20,25 @@ as its success rate grows.
     >>> obs, reward, terminated, truncated, info = env.step(actions)
 """
 from metadrive_ped_torch.envs.curriculum import CurriculumWrapper
+from metadrive_ped_torch.envs.gym_wrapper import createGymWrapper
 from metadrive_ped_torch.envs.marl_envs import (
     MultiAgentBidirectionEnv, MultiAgentBottleneckEnv, MultiAgentIntersectionEnv,
     MultiAgentMetaDrive, MultiAgentParkingLotEnv, MultiAgentRacingEnv, MultiAgentRoundaboutEnv,
     MultiAgentTinyInter, MultiAgentTollgateEnv,
 )
 from metadrive_ped_torch.envs.metadrive_env import MetaDriveEnv
+from metadrive_ped_torch.envs.mix_waymo_pg_env import MixWaymoPGEnv
 from metadrive_ped_torch.envs.mixed_traffic_env import MixedTrafficEnv
 from metadrive_ped_torch.envs.safe_metadrive_env import SafeMetaDriveEnv
 from metadrive_ped_torch.envs.scenario_env import ScenarioEnv
 from metadrive_ped_torch.envs.varying_dynamics_env import VaryingDynamicsEnv
+from metadrive_ped_torch.version import VERSION, __version__
 
 __all__ = [
     "MetaDriveEnv", "SafeMetaDriveEnv", "VaryingDynamicsEnv", "ScenarioEnv", "MixedTrafficEnv",
-    "CurriculumWrapper",
+    "CurriculumWrapper", "MixWaymoPGEnv", "createGymWrapper",
     "MultiAgentMetaDrive", "MultiAgentRoundaboutEnv", "MultiAgentIntersectionEnv",
     "MultiAgentBottleneckEnv", "MultiAgentBidirectionEnv", "MultiAgentTollgateEnv",
     "MultiAgentParkingLotEnv", "MultiAgentRacingEnv", "MultiAgentTinyInter",
+    "VERSION", "__version__",
 ]

@@ -143,7 +143,7 @@ class BaseVectorEnv(VectorEnvLoop):
                                 # GENERATE_CONFIG keys (base_map.py:30-41):
                                 # config overrides the top-level `map`
                                 type=None, config=None,
-                                xodr_file=None,  # OpenDrive ingest (not ported)
+                                xodr_file=None,  # OpenDrive ingest (mapgen/opendrive.py)
                                 # CityBIG growth instead of linear BIG
                                 # (component/map/city_map.py:97-113)
                                 city_map=False),
@@ -390,6 +390,22 @@ class BaseVectorEnv(VectorEnvLoop):
             random_agent_model=self.config["random_agent_model"],
         )
 
+    @property
+    def observation_space(self):
+        import gymnasium as gym
+        return gym.spaces.Box(-0.0, 1.0, shape=(self.observation_dim,), dtype=np.float32)
+
+    @property
+    def action_space(self):
+        import gymnasium as gym
+        cfg = self.config
+        if cfg["discrete_action"]:
+            if cfg["use_multi_discrete"]:
+                return gym.spaces.MultiDiscrete(
+                    [cfg["discrete_steering_dim"], cfg["discrete_throttle_dim"]])
+            return gym.spaces.Discrete(cfg["discrete_steering_dim"] * cfg["discrete_throttle_dim"])
+        return gym.spaces.Box(-1.0, 1.0, shape=(2,), dtype=np.float32)
+
     def _convert_actions(self, actions):
         """Discrete / MultiDiscrete -> continuous
         (env_input_policy.py:40-48 convert_to_continuous_action)."""
@@ -445,14 +461,70 @@ class BaseVectorEnv(VectorEnvLoop):
     def render(self, mode="topdown", **kwargs):
         self._not_ported("render", "queue 1, item 14 (camera and render)")
 
+    # -- fault injection and state snapshots (the reference's record/replay
+    #    substrate, base_engine.py:480-487: the whole [E, ...] state tree is
+    #    the episode state, so checkpoint and resume are tree copies) -------
+    def set_break_down(self, rows=None, break_down=True):
+        """In-sim fault injection (vehicle.set_break_down,
+        base_vehicle.py:939-941): the selected rows' vehicles stop
+        responding to actions until un-set or respawned. ``rows`` is a bool
+        mask [rows], an index list, or None for all rows."""
+        st = self._state
+        if st is None:
+            raise RuntimeError("reset() the env before injecting faults")
+        flags = st.ego.break_down.clone()
+        if rows is None:
+            flags[:] = break_down
+        else:
+            flags[torch.as_tensor(rows, device=self.device)] = break_down
+        self._state = st.replace(ego=st.ego.replace(break_down=flags))
+
     def snapshot(self):
-        self._not_ported("snapshot", "queue 1, item 15 (record and replay)")
+        """The full simulation state as a host tree of numpy arrays."""
+        return tree_map(lambda x: x.detach().cpu().numpy(), self._state)
+
+    def restore(self, snap):
+        """Restore a snapshot taken from an env with the same config: every
+        leaf goes back to the device with its dtype (the PRNG keys are int64
+        holding uint32 words), and the last observation is recomputed."""
+        self._state = tree_map(lambda x: torch.from_numpy(np.array(x)).to(self.device), snap)
+        zeros = torch.zeros(self.num_envs, device=self.device)
+        self._last_obs = self._observe(self._state, zeros, zeros)
 
     def record_episode(self, n_steps, policy_fn=None, actions=None):
-        self._not_ported("record_episode", "queue 1, item 15 (record and replay)")
+        """Per-frame recording (RecordManager, manager/record_manager.py):
+        a frame is the full state tree, so the recording is the stacked
+        tree [T, rows, ...] with obs, reward, done and the applied action,
+        as numpy trees that pickle. Any frame restores exactly
+        (`replay_frame`). Memory is T times the live state."""
+        outs, _ = self.rollout(
+            n_steps, policy_fn=policy_fn, actions=actions,
+            collect=("state", "obs", "reward", "terminated", "truncated", "ego_action"))
+        return {k: tree_map(lambda x: x.detach().cpu().numpy(), v) for k, v in outs.items()}
+
+    def replay_frame(self, recording, t):
+        """ReplayManager force-set (manager/replay_manager.py): restore the
+        world as it was after recorded step ``t`` and return the obs; stepping
+        on with the recorded actions reproduces the recorded future."""
+        self.restore(tree_map(lambda x: x[t], recording["state"]))
+        return self._last_obs
 
     def dump_all_maps(self, path):
-        self._not_ported("dump_all_maps", "queue 1, item 15 (record and replay)")
+        """Write the compiled scene pack to a pickle
+        (PGMapManager.dump_all_maps, pg_map_manager.py:92-110); an env with
+        map_pack_file=path skips map generation."""
+        import pickle
+        with open(path, "wb") as f:
+            pickle.dump(dict(pack=self._pack, num_scenarios=self.config["num_scenarios"],
+                             start_seed=self.config["start_seed"]), f)
+        return path
+
+    def get_map_features(self, scenario_index=0):
+        """Lane centerlines and boundary lines of one compiled scenario as an
+        SD map_features dict (BaseMap.get_map_features, base_map.py:163-172;
+        drawn by `scenario.utils.draw_map`)."""
+        from metadrive_ped_torch.scenario.recorder import _map_features
+        return _map_features(self._pack, int(scenario_index))
 
     def close(self):
         self._state = None

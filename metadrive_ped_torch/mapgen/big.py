@@ -206,10 +206,8 @@ def generate_map(seed, map_config):
     exit_length.
     """
     if map_config.get("xodr_file"):
-        raise NotImplementedError(
-            "map_config.xodr_file: OpenDrive ingest (mapgen/opendrive.py) is "
-            "not ported yet; ROADMAP.md queue 1, item 15 ports it"
-        )
+        from metadrive_ped_torch.mapgen.opendrive import generate_opendrive_map
+        return generate_opendrive_map(map_config)
     if map_config.get("city_map"):
         return generate_city_map(seed, map_config)
     network = NodeRoadNetwork()

@@ -74,15 +74,20 @@ def obs_correction(obs):
     return x
 
 
-def expert_action(params, obs, rng=None, deterministic=True):
-    """Batched expert forward: obs [B, 275] -> actions [B, 2]; with
-    ``deterministic=False`` and a key ``rng`` the mean plus exp(log_std)
-    times a normal draw of `prng.normal`."""
+def expert_forward(params, obs):
+    """Batched expert MLP: obs [B, 275] -> (mean [B, 2], log_std [B, 2])."""
     x = obs_correction(obs)
     x = torch.tanh(x @ params["w1"] + params["b1"])
     x = torch.tanh(x @ params["w2"] + params["b2"])
     x = x @ params["w3"] + params["b3"]
-    mean, log_std = x[..., :2], x[..., 2:]
+    return x[..., :2], x[..., 2:]
+
+
+def expert_action(params, obs, rng=None, deterministic=True):
+    """Batched expert forward: obs [B, 275] -> actions [B, 2]; with
+    ``deterministic=False`` and a key ``rng`` the mean plus exp(log_std)
+    times a normal draw of `prng.normal`."""
+    mean, log_std = expert_forward(params, obs)
     if deterministic or rng is None:
         return mean
     return mean + torch.exp(log_std) * prng.normal(rng, tuple(mean.shape))

@@ -131,9 +131,27 @@ def save_dataset(scenarios, directory):
 
 
 def draw_map(map_features, show=False, save_path=None):
-    """Plot of lane centerlines and road edges (scenario/utils.py:25-35
-    draw_map). Not ported: it needs plotting."""
-    raise NotImplementedError(
-        "draw_map is not ported to metadrive_ped_torch yet; ROADMAP.md queue 1, "
-        "item 14 (top-down, camera and render) ports it"
-    )
+    """Matplotlib scatter of lane centerlines and road edges
+    (scenario/utils.py:25-35 draw_map; the export-map workflow of
+    tests/test_functionality/test_export_map.py). Host code: it draws the
+    numpy polylines of ``map_features`` with the Agg backend."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=(8, 6), dpi=200)
+    for value in map_features.values():
+        poly = np.asarray(value.get("polyline", []))
+        if poly.ndim != 2 or not len(poly):
+            continue
+        if "LANE" in str(value.get("type", "")).upper():
+            plt.scatter(poly[:, 0], poly[:, 1], s=0.1)
+        else:
+            plt.scatter(poly[:, 0], poly[:, 1], s=0.1, c="k")
+    plt.gca().set_aspect("equal")
+    if save_path:
+        plt.savefig(save_path)
+    if show:  # pragma: no cover - interactive
+        plt.show()
+    plt.close(fig)
+    return fig

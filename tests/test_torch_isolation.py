@@ -1,8 +1,9 @@
-"""metadrive_ped_torch and chip_smoke.py stand alone: they import neither
-jax, flax, metadrive_ped_tpu nor bench.py, every env class (PG, safe,
-varying dynamics, scenario, multi-agent) needs an explicit device="cpu"
-without a GPU, and chip_smoke.py refuses to run
-without one."""
+"""metadrive_ped_torch (its examples included) and chip_smoke.py stand
+alone: they import neither jax, flax, metadrive_ped_tpu nor bench.py and
+read no file of the JAX package, every env class (PG, safe, varying
+dynamics, scenario, multi-agent, the mixed Waymo/PG env and the gym
+wrapper) needs an explicit device="cpu" without a GPU, and chip_smoke.py
+refuses to run without one."""
 import ast
 import os
 import shutil
@@ -71,6 +72,39 @@ for _ in range(3):
     xobs, *_ = xenv.step(np.tile([0.0, 1.0], (2, 1)))
 assert bool(np.isfinite(xobs.numpy()).all())
 print("mixed", tuple(xobs.shape))
+from metadrive_ped_torch import MixWaymoPGEnv, createGymWrapper
+from metadrive_ped_torch.mapgen.opendrive import TWO_ROAD_XODR
+from metadrive_ped_torch.policies.expert_torch import torch_expert_action
+from metadrive_ped_torch.scenario.utils import draw_map
+import importlib, os, tempfile
+with tempfile.TemporaryDirectory() as d:
+    xodr = os.path.join(d, "two_road.xodr")
+    with open(xodr, "w") as f:
+        f.write(TWO_ROAD_XODR)
+    genv = createGymWrapper(MetaDriveEnv)(dict(num_envs=2, num_scenarios=1, traffic_density=0.1,
+                                               map_config=dict(xodr_file=xodr)), device="cpu")
+    gobs = genv.reset(seed=0)
+    assert len(genv.step(np.tile([0.0, 1.0], (2, 1)))) == 4
+    print("gym", genv.observation_space.shape, genv.action_space.shape)
+    snap = genv.snapshot()
+    rec = genv.record_episode(3)
+    genv.replay_frame(rec, 1)
+    genv.restore(snap)
+    genv.set_break_down([0])
+    genv.dump_all_maps(os.path.join(d, "maps.pkl"))
+    draw_map(genv.get_map_features(0), save_path=os.path.join(d, "map.png"))
+    print("expert", torch_expert_action(np.zeros((2, 275), np.float32), device="cpu").shape)
+    for name in ("train_ppo", "procedural_generation", "verify_headless_installation"):
+        importlib.import_module("metadrive_ped_torch.examples." + name)
+    from metadrive_ped_torch.examples import train_ppo
+    train_ppo.main(["--cpu", "--num-envs", "2", "--rollout", "4", "--iters", "1",
+                    "--num-scenarios", "1", "--minibatches", "2"])
+sds = [synthetic_waymo_sd(s, T=20, n_tracks=8, lane_pts=30) for s in range(2)]
+mix = MixWaymoPGEnv(dict(num_envs=2, scenario_data=sds, map="S"), device="cpu")
+for i in range(3):
+    mix.reset(seed=i)
+    mix.step(np.tile([0.0, 1.0], (2, 1)))
+print("mix", mix.is_current_real_data)
 import chip_smoke
 loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -93,6 +127,8 @@ def test_port_runs_with_jax_blocked():
     assert "marl MultiAgentRoundaboutEnv (2, 4, 91)" in out.stdout
     assert "marl MultiAgentTollgateEnv (2, 4, 156)" in out.stdout
     assert "mixed (2, 275)" in out.stdout
+    assert "gym (259,) (2,)" in out.stdout and "expert (2, 2)" in out.stdout
+    assert "mix " in out.stdout
 
 
 def _port_sources():
@@ -170,14 +206,18 @@ def test_scenario_env_default_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(set(metadrive_ped_torch.__all__)
-                                        - {"MetaDriveEnv", "ScenarioEnv", "CurriculumWrapper"}))
+                                        - {"MetaDriveEnv", "ScenarioEnv", "CurriculumWrapper",
+                                           "VERSION", "__version__"}))
 def test_new_env_classes_default_device_needs_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dict(num_envs=1, num_scenarios=1, traffic_density=0.0)
     if name.startswith("MultiAgent"):
         cfg["num_agents"] = 2
+    cls = getattr(metadrive_ped_torch, name)
+    if name == "createGymWrapper":
+        cls = cls(metadrive_ped_torch.MetaDriveEnv)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        getattr(metadrive_ped_torch, name)(cfg)
+        cls(cfg)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

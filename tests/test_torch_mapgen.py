@@ -58,6 +58,16 @@ def test_seg_points_equal(packs):
     np.testing.assert_array_equal(to_np(p1), np.asarray(q1))
 
 
-def test_opendrive_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_build([0], dict(map_config=dict(xodr_file="any.xodr")))
+def test_opendrive_not_ported(tmp_path):
+    """The OpenDrive ingest is ported: an .xodr map compiles to the JAX
+    package's pack, bit for bit (tests/test_torch_opendrive.py holds the
+    parser, the network and an env on it)."""
+    from metadrive_ped_torch.mapgen.opendrive import TWO_ROAD_XODR
+    path = tmp_path / "two_road.xodr"
+    path.write_text(TWO_ROAD_XODR)
+    cfg = dict(map_config=dict(xodr_file=str(path)), traffic_density=0.1)
+    ours, ref = torch_build([0], cfg), jax_build([0], cfg)
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        assert ours[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)

@@ -103,6 +103,31 @@ def test_make_expert_policy_against_jax():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=EXPERT_TOL)
 
 
+def test_torch_expert_weights_against_jax():
+    from metadrive_ped_torch.policies.expert_torch import load_torch_expert_weights as ours
+    from metadrive_ped_tpu.policies.expert_torch import load_torch_expert_weights as ref
+    a, b = ref(), ours(device="cpu")
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(b[k].numpy(), a[k].numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_torch_expert_action_against_jax(deterministic):
+    """Both packages' torch entry point to the expert on the same obs. The
+    stochastic case draws from torch's global generator in both, seeded
+    alike before each call."""
+    from metadrive_ped_torch.policies.expert_torch import torch_expert_action as ours
+    from metadrive_ped_tpu.policies.expert_torch import torch_expert_action as ref
+    obs = np.random.RandomState(3).uniform(0, 1, (64, 275)).astype(np.float32)
+    torch.manual_seed(7)
+    a = ref(obs, deterministic=deterministic)
+    torch.manual_seed(7)
+    b = ours(obs, deterministic=deterministic, device="cpu")
+    assert b.shape == (64, 2)
+    np.testing.assert_allclose(b, a, rtol=0, atol=EXPERT_TOL)
+
+
 def test_missing_checkpoint(tmp_path):
     missing = str(tmp_path / "none.npz")
     with pytest.raises(FileNotFoundError):

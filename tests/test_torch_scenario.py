@@ -376,8 +376,9 @@ def test_dataset_roundtrip_and_worker_striding(tmp_path, exported):
     env = TorchEnv(dict(num_envs=2, data_directory=str(tmp_path), num_scenarios=2),
                    device="cpu")
     assert env.num_scenarios == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_utils.draw_map(sds[0]["map_features"])
+    png = tmp_path / "map.png"
+    torch_utils.draw_map(sds[0]["map_features"], save_path=str(png))
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n" and png.stat().st_size > 1000
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
