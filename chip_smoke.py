@@ -108,7 +108,30 @@ needs one CUDA device, and prints one JSON line per phase:
                  speed falls); record_episode(20) at 256 envs, replay of
                  frame 4 and one step equal to frame 5; a dump_all_maps
                  reload with a bit-equal pack
-22. ppo_train    the train_ppo example's configuration at the `pg` width
+22. image_obs    the camera observation: the main path's env (map 3, 16
+                 scenarios, traffic 0.05, lidar 240, side 160, lane-line 12)
+                 at 1024 envs with an 84x84 rgb camera and a stack of 3:
+                 the kernel against its plain version on the env's line
+                 table, then 100 steps through `step` at full throttle:
+                 env-steps/s over steps 50-100, the camera's launches and
+                 device ms per frame and a step's from the profiler, the
+                 camera's bound (`camera_bound`), peak device memory
+                 (at most 16 GB), kernel launches (steps + 1: the state
+                 half), the second step under set_sync_debug_mode("error"),
+                 image and state finite in [0, 1]
+23. camera_modalities  depth, semantic, instance and the mini map at the
+                 same config and pack, 10 steps each: shapes, ranges,
+                 steps + 1 launches each
+24. top_down     TopDownMetaDrive (frame_stack 3, 84x84) at 4096 envs for
+                 100 steps through `step`: env-steps/s, launches and device
+                 ms of a step and of the BEV, peak memory, no kernel launch
+25. render_card_vs_cpu  4 envs of the image_obs config for 20 steps on the
+                 card, the state copied to the CPU every 5 steps: every
+                 camera modality, the mini map, the top-down frame at 50 m
+                 and 30 m and the three render modes against the CPU at the
+                 CPU tests' tolerances (obs/pixel_check.py), and the stacked
+                 top-down ring bit-equal to the CPU's on the card's frames
+26. ppo_train    the train_ppo example's configuration at the `pg` width
                  (8192 envs, map=3, 64 scenarios, traffic 0.05, lidar 240
                  and 4 neighbours): 3 iterations of a 128-step collection
                  through `rollout` with the sampling policy (one step under
@@ -121,7 +144,7 @@ needs one CUDA device, and prints one JSON line per phase:
                  profiler). It runs last: after its profiled update, the
                  profiles of later phases saw no launch of the detector
                  kernel
-23. ppo_card_vs_cpu  one update (1 epoch, 2 minibatches) of 131,072 rows of
+27. ppo_card_vs_cpu  one update (1 epoch, 2 minibatches) of 131,072 rows of
                  the last batch from the same parameters and permutation on
                  the card and on the CPU: the first minibatch's gradients
                  per leaf within 1e-5 of the leaf's largest gradient, a
@@ -133,7 +156,7 @@ needs one CUDA device, and prints one JSON line per phase:
 
 The expert's products need float32 matmuls in full precision: the device
 phase asserts that TF32 is off. Then the kernels line (launches summed over
-the env phases 4, 6-8, 10-13, 15-16 and 18-21), the card's name and
+the env phases 4, 6-8, 10-13, 15-16, 18-24), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
 raises and exits non-zero.
 """
@@ -222,6 +245,28 @@ UNTRIED_SCENES = (("marl_parking_lot", "MultiAgentParkingLotEnv"),
                   ("marl_tinyinter", "MultiAgentTinyInter"))
 UNTRIED_ENVS, UNTRIED_STEPS = 256, 100
 EXPORT_STEPS = 100
+# The pixel observations: the main path's env with an 84x84 rgb camera and
+# a stack of 3 (its state half runs the detectors, so the kernel), at 1024
+# envs; the other camera modalities and the mini map on the same pack; the
+# stacked top-down env at 4096 envs; card against CPU at 4 envs.
+IMAGE_OBS = dict(MAIN_PATH, num_envs=1024, image_observation=True, stack_size=3,
+                 sensors=dict(main_camera=("rgb", 84, 84)))
+IMAGE_STEPS, IMAGE_TIMED_FROM, MODALITY_STEPS = 100, 50, 10
+MODALITIES = (("depth", 1), ("semantic", 3), ("instance", 3), ("mini_map", 3))
+TOP_DOWN = dict(num_envs=4096, map=3, num_scenarios=16, traffic_density=0.05, horizon=1000)
+RENDER_CPU_ENVS, RENDER_CPU_STEPS, RENDER_CHECK_EVERY = 4, 20, 5
+# the tolerances of tests/test_torch_camera.py and test_torch_top_down.py;
+# a pixel beyond them must be one that float32 rounding can decide
+# (metadrive_ped_torch/obs/pixel_check.py)
+CAMERA_TOL = dict(depth=1e-5, rgb=1e-5, semantic=0.0, instance=1e-6)
+# float32 operations of the camera (ops/camera.py) per pixel and primitive,
+# a transcendental (atan2, sqrt, reciprocal) counted as one, so the bound
+# is a least time: a (pixel, segment) pair 25 (offsets 2, projection 6,
+# closest point 6, distance 4, threshold 2, masks 5), a (pixel, lane) pair
+# 52 (local_coordinates 43, the region test 9), a (pixel, box) pair 50
+# (rotation 7, three slabs 30, entry / exit / hit 8, nearest 5)
+CAMERA_OPS = dict(segment=25, lane=52, box=50)
+CAMERA_OUT_FLOATS = 10  # depth 1, semantic 3, rgb 3, instance 3 per pixel
 DEVICE = "cuda"
 STEPS = 200
 TIMED_FROM = 100
@@ -1108,6 +1153,263 @@ def drive_snapshot(card):
     return launches
 
 
+def image_steps(env, act, steps, timed_from):
+    """Reset and ``steps`` steps of ``env`` through `step` (the image
+    observation and the top-down ring live there), the second under
+    set_sync_debug_mode("error"). Returns (the last observation, seconds
+    over steps timed_from..steps, episodes finished, ray-segment launches,
+    peak device memory)."""
+    import torch
+
+    from metadrive_ped_torch.ops import ray_segment as rs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rs.launches = 0
+    obs, _ = env.reset(seed=0)
+    finished = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    for i in range(steps):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i == 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            obs, _, term, trunc, _ = env.step(act)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        finished += (term | trunc).sum()
+    torch.cuda.synchronize()
+    return (obs, time.perf_counter() - t0, int(finished), rs.launches,
+            torch.cuda.max_memory_allocated())
+
+
+def camera_bound(E, P, L, B, T):
+    """Least time (ms) of one camera frame of E envs at P pixels over L
+    lanes, B segments and T boxes, and what sets it: CAMERA_OPS operations
+    per pair against the float32 peak, or the frame's outputs written once
+    (the per-env tables it reads are under 0.1% of them)."""
+    ops = E * P * (CAMERA_OPS["segment"] * B + CAMERA_OPS["lane"] * L + CAMERA_OPS["box"] * T)
+    t_ops = ops / PEAK_FP32_OPS * 1e3
+    t_bytes = E * P * CAMERA_OUT_FLOATS * 4 / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def in_unit_range(x, shape):
+    import torch
+    x = x.float()
+    return (tuple(x.shape) == shape and bool(torch.isfinite(x).all())
+            and bool(((x >= 0) & (x <= 1)).all()))
+
+
+def drive_image_obs(card):
+    """The camera observation at IMAGE_OBS: the kernel against its plain
+    version on the env's line table at E = 1024, then IMAGE_STEPS steps
+    through `step`, the rate over the second half, the camera's and the step's launches and
+    device ms from the profiler, peak memory, steps + 1 kernel launches (the
+    state half), and image and state in [0, 1]."""
+    import torch
+
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.ops import camera
+    env = MetaDriveEnv(IMAGE_OBS, device=DEVICE)
+    E = env.num_envs
+    env.reset(seed=0)
+    krow = kernel_case("image_obs", detector_args(env), iters=20)
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    obs, seconds, finished, launches, peak = image_steps(env, act, IMAGE_STEPS, IMAGE_TIMED_FROM)
+    image_ok = in_unit_range(obs["image"], (E, 84, 84, 3, IMAGE_OBS["stack_size"]))
+    state_ok = in_unit_range(obs["state"], (E, env.observation_dim))
+    L, B = env.scene.lane_kind.shape[1], env.scene.seg_type.shape[1]
+    T = int(env._lidar_targets(env._state)[0][0].shape[1])
+    P = 84 * 84
+    rows = max(1, camera.RENDER_CHUNK_ELEMENTS // (P * max(L, B, T)))
+    bound_ms, bound_by = camera_bound(E, P, L, B, T)
+    cam_launches, cam_ms = kernel_profile(
+        lambda: [env._render_frame(env._state) for _ in range(2)], 2)
+    step_launches_, step_ms = kernel_profile(lambda: [env.step(act) for _ in range(2)], 2)
+    row = dict(phase="image_obs", num_envs=E, camera=IMAGE_OBS["sensors"]["main_camera"],
+               stack_size=IMAGE_OBS["stack_size"], steps=IMAGE_STEPS,
+               rate_window=f"steps {IMAGE_TIMED_FROM}-{IMAGE_STEPS}", seconds=seconds,
+               env_steps_per_s=E * (IMAGE_STEPS - IMAGE_TIMED_FROM) / seconds, card=card,
+               lanes=L, segments=B, targets=T, chunk_rows=rows, chunks=-(-E // rows),
+               camera_pairs=dict(segment=E * P * B, lane=E * P * L, box=E * P * T),
+               camera_launches_per_call=cam_launches, camera_device_ms_per_call=cam_ms,
+               camera_bound_ms=bound_ms, camera_bound_by=bound_by,
+               camera_share_of_bound=bound_ms / cam_ms if cam_ms else None,
+               step_launches=step_launches_, step_device_ms=step_ms,
+               image_ok=image_ok, state_ok=state_ok, episodes_finished=finished,
+               ray_segment_launches=launches, expected_launches=IMAGE_STEPS + 1,
+               host_sync_checked_step=2, peak_memory_bytes=peak)
+    emit(**row)
+    if not (image_ok and state_ok):
+        raise AssertionError("image_obs: image or state out of shape or range")
+    if launches != IMAGE_STEPS + 1:
+        raise AssertionError(f"image_obs: ray-segment kernel launched {launches} times, "
+                             f"expected {IMAGE_STEPS + 1}")
+    if peak > 16e9:
+        raise AssertionError(f"image_obs: peak device memory {peak} bytes is above 16 GB")
+    return env, row, krow
+
+
+def drive_camera_modalities(card, pack_path):
+    """Depth, semantic, instance and the mini map at the image_obs env's
+    config and pack, MODALITY_STEPS steps each: shapes and ranges."""
+    import torch
+
+    from metadrive_ped_torch import MetaDriveEnv
+    launches = 0
+    for modality, channels in MODALITIES:
+        source = "mini_map" if modality == "mini_map" else "main_camera"
+        cfg = dict(IMAGE_OBS, map_pack_file=pack_path, image_source=source,
+                   sensors={source: (modality, 84, 84)})
+        env = MetaDriveEnv(cfg, device=DEVICE)
+        E = env.num_envs
+        act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+        obs, seconds, _, n, peak = image_steps(env, act, MODALITY_STEPS, 1)
+        img = obs["image"].float()
+        ok = in_unit_range(img, (E, 84, 84, channels, IMAGE_OBS["stack_size"]))
+        row = dict(phase="camera_modalities", modality=modality, num_envs=E, steps=MODALITY_STEPS,
+                   shape=list(img.shape), image_ok=ok, min=float(img.min()), max=float(img.max()),
+                   newest_frame_std=float(img[..., -1].std()), seconds=seconds,
+                   env_steps_per_s=E * (MODALITY_STEPS - 1) / seconds, card=card,
+                   ray_segment_launches=n, expected_launches=MODALITY_STEPS + 1,
+                   peak_memory_bytes=peak)
+        emit(**row)
+        if not ok or row["newest_frame_std"] == 0:
+            raise AssertionError(f"camera_modalities: {modality} out of shape or range, or blank")
+        if n != MODALITY_STEPS + 1:
+            raise AssertionError(f"camera_modalities: {modality}: the kernel launched {n} times")
+        launches += n
+        del env
+    return launches
+
+
+def drive_top_down(card):
+    """TopDownMetaDrive at TOP_DOWN: as `drive_image_obs`, without the
+    detectors (no kernel launch)."""
+    import torch
+
+    from metadrive_ped_torch import TopDownMetaDrive
+    env = TopDownMetaDrive(TOP_DOWN, device=DEVICE)
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    obs, seconds, finished, launches, peak = image_steps(env, act, IMAGE_STEPS, IMAGE_TIMED_FROM)
+    ok = in_unit_range(obs, (E,) + tuple(env.observation_dim))
+    step_launches_, step_ms = kernel_profile(lambda: [env.step(act) for _ in range(2)], 2)
+    bev_launches, bev_ms = kernel_profile(
+        lambda: [env._observe(env._state, None, None) for _ in range(2)], 2)
+    row = dict(phase="top_down", num_envs=E, observation=list(env.observation_dim),
+               frame_stack=env.config["frame_stack"], steps=IMAGE_STEPS,
+               rate_window=f"steps {IMAGE_TIMED_FROM}-{IMAGE_STEPS}", seconds=seconds,
+               env_steps_per_s=E * (IMAGE_STEPS - IMAGE_TIMED_FROM) / seconds, card=card,
+               obs_ok=ok, road_share=float((obs[..., 0] > 0).float().mean()),
+               step_launches=step_launches_, step_device_ms=step_ms,
+               bev_launches_per_call=bev_launches, bev_device_ms_per_call=bev_ms,
+               episodes_finished=finished, ray_segment_launches=launches, expected_launches=0,
+               host_sync_checked_step=2, peak_memory_bytes=peak)
+    emit(**row)
+    if not ok or row["road_share"] == 0:
+        raise AssertionError("top_down: observation out of shape or range, or no road")
+    if launches != 0:
+        raise AssertionError(f"top_down: the detectors are off, yet the kernel launched "
+                             f"{launches} times")
+    return row
+
+
+def render_card_vs_cpu(card):
+    """RENDER_CPU_ENVS envs of the image_obs config on the card, their state
+    copied to the CPU every RENDER_CHECK_EVERY steps: every camera modality,
+    the mini map, the top-down frame at 50 m and 30 m, and the three render
+    modes on both, held to CAMERA_TOL with each pixel beyond it checked
+    (obs/pixel_check.py); and the stacked top-down env's ring on the card
+    against the CPU's `_assemble` of the card's frames, bit for bit."""
+    import numpy as np
+    import torch
+
+    from metadrive_ped_torch import MetaDriveEnv, TopDownMetaDrive
+    from metadrive_ped_torch.core.convert import state_to_numpy
+    from metadrive_ped_torch.core.structs import tree_map
+    from metadrive_ped_torch.obs import pixel_check, top_down
+    from metadrive_ped_torch.ops import camera
+    cfg = dict(IMAGE_OBS, num_envs=RENDER_CPU_ENVS)
+    gpu, cpu = MetaDriveEnv(cfg, device=DEVICE), MetaDriveEnv(cfg, device="cpu")
+    E = RENDER_CPU_ENVS
+    act = torch.tensor([0.0, 1.0]).expand(E, 2).contiguous()
+    counted = dict(depth=0, rgb=0, semantic=0, instance=0, mini_map=0, top_down_50=0,
+                   top_down_30=0, rgb_array=0)
+    worst = dict(depth=0.0, rgb=0.0, semantic=0.0, instance=0.0)
+    render_equal = dict(topdown=True, dashboard=True)
+    gpu.reset(seed=0)
+    for step in range(1, RENDER_CPU_STEPS + 1):
+        gpu.step(act.to(DEVICE))
+        if step % RENDER_CHECK_EVERY:
+            continue
+        cpu.restore(gpu.snapshot())
+        tree = state_to_numpy(cpu._state)
+        frames = []
+        for env in (gpu, cpu):
+            st = env._state
+            targets, _ = env._lidar_targets(st)
+            tex, org = env._map_textures()
+            out = {k: v.cpu().numpy() for k, v in camera.render(
+                env.scene, st.sidx, st.ego, targets, env._target_slices,
+                env.scene.obj_kind[st.sidx.long()], width=84, height=84).items()}
+            out["mini_map"] = top_down.observe_mini_map(
+                tex, org, st.sidx, st.ego, st.npc, width=84, height=84).cpu().numpy()
+            for dist in (50, 30):
+                out[f"top_down_{dist}"] = top_down.observe_top_down(
+                    tex, org, st.sidx, st.ego, st.npc, st.ego.past_pos,
+                    max_distance=float(dist)).cpu().numpy()
+            frames.append(out)
+        margins = pixel_check.camera_margins(cpu, cpu._state, 84, 84)
+        for k in worst:
+            a, b = frames[1][k], frames[0][k]
+            counted[k] += pixel_check.camera_mismatches(a, b, margins, CAMERA_TOL[k])
+            worst[k] = max(worst[k], float(np.abs(a - b).max()))
+        tex, org = (x.numpy() for x in cpu._map_textures())
+        counted["mini_map"] += pixel_check.check_frame(
+            frames[1]["mini_map"], frames[0]["mini_map"], "mini_map", tree, tex, org,
+            *pixel_check.grid(84, 84, 50.0, look_ahead=20.0))
+        for dist in (50, 30):
+            key = f"top_down_{dist}"
+            counted[key] += pixel_check.check_frame(
+                frames[1][key], frames[0][key], "top_down", tree, tex, org,
+                *pixel_check.grid(84, 84, float(dist)))
+        for mode in render_equal:
+            render_equal[mode] &= bool(np.array_equal(gpu.render(mode, env_index=1),
+                                                      cpu.render(mode, env_index=1)))
+        # rgb_array: the uint8 of the camera's float frame at 256x144 of row 1
+        mine, theirs = gpu.render("rgb_array", env_index=1), cpu.render("rgb_array", env_index=1)
+        one = tree_map(lambda x: x[1:2], cpu._state)
+        m = pixel_check.camera_margins(cpu, one, 256, 144)[0].reshape(144, 256)
+        differ = (mine != theirs).any(-1)
+        level = np.abs(mine.astype(int) - theirs).max(-1)
+        if not ((level <= 1) | (m < pixel_check.EDGE_TOL))[differ].all():
+            raise AssertionError("render_card_vs_cpu: rgb_array differs away from a threshold")
+        counted["rgb_array"] += int(differ.sum())
+
+    # the stacked top-down env's ring: the card's observations against the
+    # CPU's _assemble of the card's own frames
+    tdg = TopDownMetaDrive(dict(TOP_DOWN, num_envs=E, horizon=8), device=DEVICE)
+    tdc = TopDownMetaDrive(dict(TOP_DOWN, num_envs=E, horizon=8), device="cpu")
+    obs, _ = tdg.reset(seed=0)
+    ring_equal = bool(torch.equal(obs.cpu(), tdc._assemble(tdg._last_obs.cpu())))
+    dones = 0
+    for _ in range(RENDER_CPU_STEPS):
+        obs, _, te, tr, _ = tdg.step(act.to(DEVICE))
+        done = (te | tr).cpu()
+        dones += int(done.sum())
+        ring_equal &= bool(torch.equal(obs.cpu(), tdc._assemble(tdg._last_obs.cpu(), done)))
+    row = dict(phase="render_card_vs_cpu", num_envs=E, steps=RENDER_CPU_STEPS,
+               checked_every=RENDER_CHECK_EVERY, camera=cfg["sensors"]["main_camera"],
+               tol=CAMERA_TOL, max_abs_err=worst, pixels_beyond_tol_checked=counted,
+               render_equal=render_equal, stacked_ring_equal=ring_equal, ring_dones=dones,
+               card=card)
+    emit(**row)
+    if not (all(render_equal.values()) and ring_equal and dones > 0):
+        raise AssertionError(f"render_card_vs_cpu: render or ring differ: {row}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1312,6 +1614,18 @@ def main():
         od_row, phase_launches["opendrive"] = drive_opendrive(card, xodr_path)
     rows.append(od_row)
     phase_launches["snapshot_replay"] = drive_snapshot(card)
+
+    # ---- pixel observations ---------------------------------------------
+    env, row, krow = drive_image_obs(card)
+    rows.append(krow)
+    phase_launches["image_obs"] = row["ray_segment_launches"]
+    with tempfile.TemporaryDirectory() as d:
+        pack_path = env.dump_all_maps(os.path.join(d, "maps.pkl"))
+        del env
+        phase_launches["camera_modalities"] = drive_camera_modalities(card, pack_path)
+    drive_top_down(card)
+    phase_launches["top_down"] = 0
+    render_card_vs_cpu(card)
     params, batch, _ = drive_ppo(card)
     phase_launches["ppo_train"] = 0
     ppo_card_vs_cpu(params, batch)

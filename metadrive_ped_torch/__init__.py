@@ -12,7 +12,10 @@ their agents into rows and take and give ``[E, A, ...]`` arrays.
 as its success rate grows. `MixWaymoPGEnv` alternates scenario replay and
 PG episodes between resets; `createGymWrapper` gives any env class the
 legacy gym API. The PG and multi-agent envs carry gymnasium spaces,
-fault injection (`set_break_down`) and snapshot/record/replay.
+fault injection (`set_break_down`) and snapshot/record/replay. The
+top-down envs (`TopDownMetaDrive` and its variants) observe a BEV raster;
+``image_observation=True`` gives any PG env a camera or mini-map frame
+stack beside the state vector, and `env.render` draws a frame of one env.
 
     >>> from metadrive_ped_torch import MetaDriveEnv
     >>> env = MetaDriveEnv(dict(num_envs=1024, map="SCS"), device="cuda")
@@ -31,12 +34,16 @@ from metadrive_ped_torch.envs.mix_waymo_pg_env import MixWaymoPGEnv
 from metadrive_ped_torch.envs.mixed_traffic_env import MixedTrafficEnv
 from metadrive_ped_torch.envs.safe_metadrive_env import SafeMetaDriveEnv
 from metadrive_ped_torch.envs.scenario_env import ScenarioEnv
+from metadrive_ped_torch.envs.top_down_env import (
+    TopDownMetaDrive, TopDownMetaDriveEnvV2, TopDownSingleFrameMetaDriveEnv,
+)
 from metadrive_ped_torch.envs.varying_dynamics_env import VaryingDynamicsEnv
 from metadrive_ped_torch.version import VERSION, __version__
 
 __all__ = [
     "MetaDriveEnv", "SafeMetaDriveEnv", "VaryingDynamicsEnv", "ScenarioEnv", "MixedTrafficEnv",
     "CurriculumWrapper", "MixWaymoPGEnv", "createGymWrapper",
+    "TopDownSingleFrameMetaDriveEnv", "TopDownMetaDrive", "TopDownMetaDriveEnvV2",
     "MultiAgentMetaDrive", "MultiAgentRoundaboutEnv", "MultiAgentIntersectionEnv",
     "MultiAgentBottleneckEnv", "MultiAgentBidirectionEnv", "MultiAgentTollgateEnv",
     "MultiAgentParkingLotEnv", "MultiAgentRacingEnv", "MultiAgentTinyInter",

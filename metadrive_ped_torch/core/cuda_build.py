@@ -1,10 +1,12 @@
-"""Build the package's CUDA kernels and load them with ctypes.
+"""Build the package's native code and load it with ctypes.
 
-Each source ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into a
+Each CUDA source ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). Libraries go to ``metadrive_ped_torch/_build/`` (listed in
+takes seconds). Each host C++ source ``native/<name>.cpp`` compiles with
+``g++ -O3 -shared -fPIC`` (`host_library`); a failed build raises, there is
+no fallback. Libraries go to ``metadrive_ped_torch/_build/`` (listed in
 .gitignore), named by a hash of the source and flags, so a changed source
-always rebuilds. Nothing is built at import: the first launch builds, or
+always rebuilds. Nothing is built at import: the first use builds, or
 `build_all` builds every kernel at once, one nvcc process per source, all
 started together.
 """
@@ -18,6 +20,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
 
 KERNELS = ("ray_segment",)
@@ -25,6 +28,7 @@ KERNELS = ("ray_segment",)
 # products, like the plain torch versions
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_HOST_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _libs = {}
 # name -> what ptxas reported for the kernel (registers, shared memory)
@@ -41,9 +45,9 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def _target(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+def _target(name, src=None, flags=_FLAGS):
+    src = (CSRC / f"{name}.cu") if src is None else src
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -97,4 +101,28 @@ def library(name):
     if lib is None:
         build_all((name,))
         lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+    return lib
+
+
+def host_library(name):
+    """The loaded ctypes library of the host C++ source ``native/<name>.cpp``,
+    built with g++ on first use. Raises when g++ is missing or fails."""
+    key = ("host", name)
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    src = NATIVE / f"{name}.cpp"
+    out = _target(name, src, _HOST_FLAGS)
+    if not out.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: {src.name} needs a C++ compiler to build")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([gxx, *_HOST_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    lib = _libs[key] = ctypes.CDLL(str(out))
     return lib

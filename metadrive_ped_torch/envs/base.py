@@ -36,9 +36,10 @@ from metadrive_ped_torch.core.structs import (
 from metadrive_ped_torch.mapgen.scene import (
     OBJ_BUILDING, OBJ_CONE, OBJ_WARNING, PED_WALKER, build_scene_pack,
 )
-from metadrive_ped_torch.obs import state_obs
+from metadrive_ped_torch.obs import state_obs, top_down
 from metadrive_ped_torch.ops import (
-    collision, dynamics, idm, lane_geom, localization, mixed_traffic, participants, ray_segment,
+    camera, collision, dynamics, idm, lane_geom, localization, mixed_traffic, participants,
+    ray_segment,
 )
 from metadrive_ped_torch.ops.gather import onehot_pick, vector_lookup
 from metadrive_ped_torch.ops.math_ops import wrap_to_pi
@@ -71,11 +72,6 @@ def make_vehicle_params(table, class_idx):
     )
 
 
-# options this package does not implement yet, with the ROADMAP.md item
-# that ports each; they raise instead of being ignored
-_NOT_PORTED = (
-    ("image_observation", bool, "queue 1, item 14 (camera and render)"),
-)
 # the expert's observation layout (policies/expert.py OBS_DIM = 275)
 EXPERT_LIDAR = dict(num_lasers=240, num_others=4)
 
@@ -211,7 +207,9 @@ class BaseVectorEnv(VectorEnvLoop):
                 show_fps=True,
                 show_logo=True,
                 show_coordinates=False,
-                # camera observation family (not ported: raises)
+                # camera observation family (obs/image_obs.py +
+                # component/sensors/*_camera.py; rendered by the ray-cast
+                # camera, ops/camera.py, or the mini map, obs/top_down.py)
                 image_observation=False,
                 norm_pixel=True,
                 stack_size=3,
@@ -264,12 +262,6 @@ class BaseVectorEnv(VectorEnvLoop):
             raise NotImplementedError(
                 "use_mesh_terrain=True: the simulation runs on an implicit flat plane"
             )
-        for key, is_on, item in _NOT_PORTED:
-            if is_on(cfg[key]):
-                raise NotImplementedError(
-                    f"{key}={cfg[key]!r} is not ported to metadrive_ped_torch yet; "
-                    f"ROADMAP.md {item} ports it"
-                )
         lidar = cfg["vehicle_config"]["lidar"]
         if cfg["agent_policy"] == "lane_change":
             # LaneChangePolicy forces discrete 3-way steering [right, keep,
@@ -340,6 +332,8 @@ class BaseVectorEnv(VectorEnvLoop):
         self.num_envs = cfg["num_envs"]
         self._state = None
         self._last_obs = None
+        self._img_stack = None  # [E, H, W, C, stack_size] with image_observation
+        self._textures = None   # the baked BEV map layers (`_map_textures`)
         # device constants, made once so that a step copies nothing from
         # the host
         dev = self.device
@@ -393,7 +387,15 @@ class BaseVectorEnv(VectorEnvLoop):
     @property
     def observation_space(self):
         import gymnasium as gym
-        return gym.spaces.Box(-0.0, 1.0, shape=(self.observation_dim,), dtype=np.float32)
+        state_space = gym.spaces.Box(-0.0, 1.0, shape=(self.observation_dim,), dtype=np.float32)
+        if not self.config["image_observation"]:
+            return state_space
+        modality, w, h = self._sensor_spec()
+        shape = (h, w, 1 if modality == "depth" else 3, self.config["stack_size"])
+        img_space = (gym.spaces.Box(-0.0, 1.0, shape=shape, dtype=np.float32)
+                     if self.config["norm_pixel"]
+                     else gym.spaces.Box(0, 255, shape=shape, dtype=np.uint8))
+        return gym.spaces.Dict({"image": img_space, "state": state_space})
 
     @property
     def action_space(self):
@@ -441,7 +443,59 @@ class BaseVectorEnv(VectorEnvLoop):
         self._state, obs, reward, terminated, truncated, info = self._step_impl(
             self._state, actions, prev_obs)
         self._last_obs = obs
+        if self.config["image_observation"]:
+            obs = self._image_obs(obs)
         return obs, reward, terminated, truncated, info
+
+    def reset(self, seed=0):
+        obs, info = super().reset(seed)
+        if self.config["image_observation"]:
+            self._img_stack = None
+            obs = self._image_obs(obs)
+        return obs, info
+
+    # ---- camera observation (ImageStateObservation, obs/image_obs.py:16-44;
+    #      the frame stack of ImageObservation.observe: roll, newest last) --
+    def _sensor_spec(self):
+        cfg = self.config
+        modality, w, h = cfg["sensors"][cfg["image_source"]]
+        return str(modality), int(w), int(h)
+
+    def _map_textures(self):
+        """The BEV map layers of every scenario on the device (textures
+        [S, 3, H, W], origins [S, 2]), baked on first use."""
+        if self._textures is None:
+            self._textures = top_down.bake_map_textures(self._pack, self.scene.num_scenarios,
+                                                         self.device)
+        return self._textures
+
+    def _render_frame(self, state):
+        """The image source's frame [E, H, W, C] float32 in [0, 1]."""
+        modality, w, h = self._sensor_spec()
+        if modality == "mini_map":
+            # the MiniMap sensor (component/sensors/mini_map.py): a BEV
+            # camera above the vehicle aimed 20 m ahead, from the baked map
+            return top_down.observe_mini_map(*self._map_textures(), state.sidx, state.ego,
+                                             state.npc, width=w, height=h)
+        targets, _ = self._lidar_targets(state)
+        cam = self.config["camera"]
+        out = camera.render(
+            self.scene, state.sidx, state.ego, targets, self._target_slices,
+            self.scene.obj_kind[state.sidx.long()], width=w, height=h, fov_deg=cam["fov"],
+            pitch_deg=cam["pitch"], cam_height=cam["height"], max_dist=cam["max_dist"])
+        return out[modality]
+
+    def _image_obs(self, state_vec):
+        """{"image": the frame stack [E, H, W, C, stack_size], "state":
+        state_vec}. Without norm_pixel the frame is uint8, frame * 255
+        truncated. The stack stays on the device; `reset` clears it."""
+        frame = self._render_frame(self._state)
+        if not self.config["norm_pixel"]:
+            frame = (frame * 255).to(torch.uint8)
+        if self._img_stack is None:
+            self._img_stack = frame.new_zeros(frame.shape + (self.config["stack_size"],))
+        self._img_stack = torch.cat([self._img_stack[..., 1:], frame[..., None]], dim=-1)
+        return {"image": self._img_stack, "state": state_vec}
 
     def _rollout_fields(self, state):
         return dict(
@@ -453,13 +507,25 @@ class BaseVectorEnv(VectorEnvLoop):
             state=state,
         )
 
-    def _not_ported(self, what, item):
-        raise NotImplementedError(
-            f"{what} is not ported to metadrive_ped_torch yet; ROADMAP.md {item} ports it"
-        )
-
     def render(self, mode="topdown", **kwargs):
-        self._not_ported("render", "queue 1, item 14 (camera and render)")
+        """An RGB uint8 frame of one env as a numpy array (reference:
+        BaseEnv.render and the pygame TopDownRenderer,
+        obs/top_down_renderer.py). Modes: "topdown" / "top_down" / "bev" /
+        "top_down_plt" (BEV map and object stamps), "rgb_array" / "camera"
+        (the ray-cast camera) and "dashboard"; ``kwargs`` go to the
+        renderer (env_index, size, width, height, ...)."""
+        from metadrive_ped_torch.obs.render import (
+            render_dashboard, render_rgb_array, render_topdown,
+        )
+        if self._state is None:
+            raise RuntimeError("call reset() before render()")
+        if mode in ("topdown", "top_down", "bev", "top_down_plt"):
+            return render_topdown(self, **kwargs)
+        if mode in ("rgb_array", "camera"):
+            return render_rgb_array(self, **kwargs)
+        if mode == "dashboard":
+            return render_dashboard(self, **kwargs)
+        raise ValueError(f"unknown render mode {mode!r}")
 
     # -- fault injection and state snapshots (the reference's record/replay
     #    substrate, base_engine.py:480-487: the whole [E, ...] state tree is

@@ -2,14 +2,11 @@
 (reference: examples/drive_in_single_agent_env.py, which drives one windowed
 env manually; headless here, batched, expert-driven).
 
-    python -m metadrive_ped_torch.examples.drive_in_single_agent_env [--cpu]
-
-``--render OUT.png`` needs the top-down renderer, which is not ported yet:
-`env.render` raises with its ROADMAP.md item.
+    python -m metadrive_ped_torch.examples.drive_in_single_agent_env [--cpu] [--render OUT.png]
 """
 import argparse
 
-from metadrive_ped_torch.examples import example_device, force_cpu_flag
+from metadrive_ped_torch.examples import example_device, force_cpu_flag, save_image
 
 
 def main(argv=None):
@@ -39,7 +36,7 @@ def main(argv=None):
           f"at destination: {int((term & outs['arrive_dest']).sum())}")
     print(f"total reward collected: {float(outs['reward'].sum()):.1f}")
     if args.render:
-        env.render("topdown")
+        print("wrote", save_image(env.render("topdown"), args.render))
     return outs
 
 

@@ -1,8 +1,7 @@
 """Installation self-check (reference: examples/verify_headless_installation.py
 checks offscreen rendering; here: the device, the build of every CUDA
-kernel on a GPU, an env step with the detectors on, and the observation's
-invariants). The camera check waits for the camera port (ROADMAP.md queue
-1, item 14).
+kernel on a GPU, an env step with the detectors on, the observation's
+invariants, and a camera observation).
 
     python -m metadrive_ped_torch.examples.verify_headless_installation [--cpu]
 """
@@ -43,8 +42,16 @@ def main(argv=None):
             raise AssertionError(f"the detector kernel launched {ray_segment.launches} times, "
                                  "expected 6")
         print("detector kernel OK: one launch a step")
+
+    cam = MetaDriveEnv(dict(num_envs=2, map="S", num_scenarios=1, image_observation=True,
+                            sensors=dict(main_camera=("rgb", 64, 64))), device=device)
+    obs, _ = cam.reset(seed=0)
+    img = obs["image"]
+    if tuple(img.shape[1:3]) != (64, 64) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"camera image {tuple(img.shape)} not finite or of the wrong size")
+    print("camera obs OK:", tuple(img.shape))
     print("Successfully verify the headless installation!")
-    return tuple(obs.shape)
+    return tuple(obs["state"].shape), tuple(img.shape)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ collected per-step state arrays become per-object track arrays at 10 Hz
 import numpy as np
 
 from metadrive_ped_torch.constants import (
-    LANE_CIRCULAR, SEG_BROKEN_LINE, SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
+    SEG_BROKEN_LINE, SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
 )
+from metadrive_ped_torch.obs.top_down import _lane_centerline
 from metadrive_ped_torch.scenario.description import MetaDriveType, ScenarioDescription as SD
 
 _SEG_TYPE_NAME = {
@@ -18,25 +19,6 @@ _SEG_TYPE_NAME = {
     SEG_BROKEN_LINE: MetaDriveType.LINE_BROKEN_SINGLE_WHITE,
     SEG_SIDEWALK: MetaDriveType.BOUNDARY_SIDEWALK,
 }
-
-
-def _lane_centerline(pack, s, lid, step=3.0):
-    """Polyline of lane ``lid`` of scenario ``s`` from its closed form: an
-    arc sampled about every ``step`` m, or a straight lane's two ends."""
-    if pack["lane_kind"][s][lid] == LANE_CIRCULAR:
-        c = np.asarray(pack["lane_p0"][s][lid])
-        r = float(pack["lane_radius"][s][lid])
-        phi0 = float(pack["lane_start_phase"][s][lid])
-        d = float(pack["lane_arc_dir"][s][lid])
-        length = float(pack["lane_length"][s][lid])
-        n = max(2, int(length / step))
-        longs = np.linspace(0, length, n)
-        phis = d * longs / r + phi0
-        return (c[None] + r * np.stack([np.cos(phis), np.sin(phis)], -1)).astype(np.float32)
-    p0 = np.asarray(pack["lane_p0"][s][lid])
-    dirv = np.asarray(pack["lane_dir"][s][lid])
-    length = float(pack["lane_length"][s][lid])
-    return np.stack([p0, p0 + dirv * length]).astype(np.float32)
 
 
 def _map_features(pack, s):

@@ -143,14 +143,22 @@ def test_ported_options_step(override):
 
 @pytest.mark.parametrize("override", [dict(image_observation=True)])
 def test_options_outside_the_slice_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchEnv(dict(num_envs=2, map="S", traffic_density=0.0, **override), device="cpu")
+    """image_observation was outside the port until the camera slice; it
+    now constructs, resets and steps, giving {"image", "state"}
+    (tests/test_torch_camera.py holds it against the JAX package)."""
+    env = TorchEnv(dict(num_envs=2, map="S", traffic_density=0.0, **override), device="cpu")
+    obs, _ = env.reset(seed=0)
+    obs, *_ = env.step(np.tile([0.0, 0.8], (2, 1)))
+    assert set(obs) == {"image", "state"}
+    assert tuple(obs["image"].shape) == (2, 84, 84, 3, 3)
+    assert obs["state"].shape == (2, env.observation_dim)
 
 
 @pytest.mark.parametrize("method", ["render", "snapshot", "record_episode", "dump_all_maps"])
 def test_methods_outside_the_slice_raise(method, tmp_path):
-    """render is still outside the port and raises with its ROADMAP.md item;
-    snapshot, record_episode and dump_all_maps are ported: a snapshot
+    """render, snapshot, record_episode and dump_all_maps are ported:
+    render gives a uint8 RGB frame (tests/test_torch_camera.py holds its
+    modes against the JAX package); a snapshot
     restores the state bit for bit, a recorded frame replays into the next
     recorded frame, and a dumped pack reloads bit-equal
     (tests/test_torch_surface.py holds them against the JAX package)."""
@@ -159,8 +167,8 @@ def test_methods_outside_the_slice_raise(method, tmp_path):
     env.reset(seed=0)
     act = np.tile([0.0, 0.8], (2, 1)).astype(np.float32)
     if method == "render":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            env.render()
+        frame = env.render()
+        assert frame.dtype == np.uint8 and frame.shape == (512, 512, 3)
     elif method == "snapshot":
         env.step(act)
         snap = env.snapshot()

@@ -1,9 +1,10 @@
 """metadrive_ped_torch (its examples included) and chip_smoke.py stand
 alone: they import neither jax, flax, metadrive_ped_tpu nor bench.py and
-read no file of the JAX package, every env class (PG, safe, varying
-dynamics, scenario, multi-agent, the mixed Waymo/PG env and the gym
-wrapper) needs an explicit device="cpu" without a GPU, and chip_smoke.py
-refuses to run without one."""
+read no file of the JAX package (its rasterizer source and library
+included), every env class (PG, safe, varying dynamics, scenario,
+multi-agent, top-down, the mixed Waymo/PG env and the gym wrapper) needs an
+explicit device="cpu" without a GPU, and chip_smoke.py refuses to run
+without one."""
 import ast
 import os
 import shutil
@@ -105,6 +106,17 @@ for i in range(3):
     mix.reset(seed=i)
     mix.step(np.tile([0.0, 1.0], (2, 1)))
 print("mix", mix.is_current_real_data)
+from metadrive_ped_torch import TopDownMetaDrive
+tenv = TopDownMetaDrive(dict(num_envs=2, map="S", num_scenarios=1), device="cpu")
+tobs, _ = tenv.reset(seed=0)
+tobs, *_ = tenv.step(np.tile([0.0, 1.0], (2, 1)))
+print("top_down", tuple(tobs.shape))
+cenv = MetaDriveEnv(dict(num_envs=2, map="S", num_scenarios=1, image_observation=True,
+                         sensors=dict(main_camera=("rgb", 32, 24))), device="cpu")
+cobs, _ = cenv.reset(seed=0)
+cobs, *_ = cenv.step(np.tile([0.0, 1.0], (2, 1)))
+frames = [cenv.render(m) for m in ("topdown", "rgb_array", "dashboard")]
+print("camera", tuple(cobs["image"].shape), [f.shape for f in frames])
 import chip_smoke
 loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -129,6 +141,8 @@ def test_port_runs_with_jax_blocked():
     assert "mixed (2, 275)" in out.stdout
     assert "gym (259,) (2,)" in out.stdout and "expert (2, 2)" in out.stdout
     assert "mix " in out.stdout
+    assert "top_down (2, 84, 84, 5)" in out.stdout
+    assert "camera (2, 24, 32, 3, 3) [(512, 512, 3), (144, 256, 3), (80, 320, 3)]" in out.stdout
 
 
 def _port_sources():

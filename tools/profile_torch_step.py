@@ -5,6 +5,7 @@
     python3 tools/profile_torch_step.py --scenario [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --marl [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --mixed [--steps 10] [--table PATH]
+    python3 tools/profile_torch_step.py --image [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --count-ops
 
 Builds the env of chip_smoke.py's main path (the `pg` bench protocol with
@@ -12,8 +13,9 @@ the side and lane-line detectors on) or, with --scenario, each of
 chip_smoke.py's three ScenarioEnv phases at their widths (scenario_replay,
 scenario_reactive, scenario_lines), or, with --marl, its marl (512 envs x
 8 agents), marl_40 and marl_tollgate (256 x 40) phases, or, with --mixed,
-its mixed_traffic and ai_protect_noise phases (8192 envs), warms it up,
-then measures:
+its mixed_traffic and ai_protect_noise phases (8192 envs), or, with
+--image, its image_obs (1024 envs, 84x84 rgb camera, stack 3) and top_down
+(TopDownMetaDrive, 4096 envs) phases, warms it up, then measures:
 
 - wall ms per step (host clock around steps ending in a synchronize);
 - device-busy ms per step and the busy share, from torch.profiler's CUDA
@@ -22,18 +24,22 @@ then measures:
 - device ms, wall ms, launches and peak device memory of each stage of
   the step, each run alone on the step's state (the stages sum to about
   the whole step; --mixed splits the expert traffic into the expert
-  observation, the per-NPC lidar and the MLP).
+  observation, the per-NPC lidar and the MLP; --image splits the camera
+  into its ray directions, ground hits, box hits and the rest of the
+  frame, and the BEV into its texture samples, stamps and stack ring).
 
 Prints one JSON line per env; with --table, writes the profiler's kernel
-table of the whole step to PATH (one table per env with --scenario or
---marl or --mixed). The scenario, multi-agent and mixed-traffic steps go
-through `rollout` (1 step a call), which makes no host sync (ScenarioEnv's
-`step` reads its coverage statistics on the host); ai_protect_noise goes
-through `step`, where the AI protector reads the previous observation.
+table of the whole step to PATH (one table per env with --scenario,
+--marl, --mixed or --image). The scenario, multi-agent and mixed-traffic
+steps go through `rollout` (1 step a call), which makes no host sync
+(ScenarioEnv's `step` reads its coverage statistics on the host);
+ai_protect_noise and the --image phases go through `step`, where the AI
+protector reads the previous observation and the frame stacks live.
 
 --count-ops needs no GPU: it counts the aten operators one step of each of
-chip_smoke.py's PG, safe, multi-agent, mixed-traffic and AI-protector
-envs dispatches on the CPU, at a few envs (the count does not depend on
+chip_smoke.py's PG, safe, multi-agent, mixed-traffic, AI-protector, camera
+(image_obs, 4 envs: one chunk of camera rows) and top-down envs dispatches
+on the CPU, at a few envs (the count does not depend on
 the number of envs, only on the number of agents), and those of the
 multi-agent respawn and of the expert traffic alone. On the card about
 0.83 kernels launch per operator (PERF.md).
@@ -81,6 +87,8 @@ def main():
                     help="profile chip_smoke.py's marl, marl_40 and marl_tollgate phases")
     ap.add_argument("--mixed", action="store_true",
                     help="profile chip_smoke.py's mixed_traffic and ai_protect_noise phases")
+    ap.add_argument("--image", action="store_true",
+                    help="profile chip_smoke.py's image_obs and top_down phases")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the aten operators of one step of each env, on the CPU")
     args = ap.parse_args()
@@ -106,6 +114,8 @@ def main():
         return profile_marl(card, args)
     if args.mixed:
         return profile_mixed(card, args)
+    if args.image:
+        return profile_image(card, args)
     env = MetaDriveEnv(dict(MAIN_PATH, num_envs=args.num_envs), device="cuda")
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
@@ -374,6 +384,95 @@ def profile_mixed(card, args):
     return 0
 
 
+def profile_image(card, args):
+    """One JSON line for chip_smoke.py's image_obs phase, its step through
+    `step` (the camera frame and its stack live there) with the camera
+    split into its stages over the chunks of env rows that `camera.render`
+    runs, and one for its top_down phase with the BEV split into the
+    texture samples, the stamps and the stack ring."""
+    import torch
+
+    import chip_smoke as cs
+    from metadrive_ped_torch import MetaDriveEnv, TopDownMetaDrive
+    from metadrive_ped_torch.obs import top_down
+    from metadrive_ped_torch.ops import camera
+    env = MetaDriveEnv(cs.IMAGE_OBS, device="cuda")
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
+    env.reset(seed=0)
+    row = step_profile(card, "image_obs", E, lambda: env.step(act), args.steps, args.table)
+    st, scene = env._state, env.scene
+    modality, w, h = env._sensor_spec()
+    cam = env.config["camera"]
+    P = w * h
+    targets, _ = env._lidar_targets(st)
+    rows = max(1, camera.RENDER_CHUNK_ELEMENTS // (P * max(
+        scene.lane_kind.shape[1], scene.seg_type.shape[1], targets[0].shape[1], 1)))
+    chunks = [slice(a, min(E, a + rows)) for a in range(0, E, rows)]
+    fwd = torch.stack([torch.cos(st.ego.heading), torch.sin(st.ego.heading)], dim=-1)
+    origin = st.ego.pos + 0.25 * st.ego.params.length[:, None] * fwd
+    t_hgt = torch.full(targets[2].shape, 1.5, device="cuda")
+
+    def rays(c):
+        return camera.pixel_rays(st.ego.heading[c], w, h, cam["fov"], cam["pitch"],
+                                 cam["height"])
+    dirs = [rays(c) for c in chunks]
+    zeros = torch.zeros(E, device="cuda")
+    stages = {
+        f"camera: pixel_rays ({len(chunks)} chunks of {rows} rows)": lambda: [
+            rays(c) for c in chunks],
+        f"camera: ground hit ([rows, {P}, {scene.lane_kind.shape[1]} lanes] local coordinates"
+        f" + [rows, {P}, {scene.seg_type.shape[1]} segments] distances)": lambda: [
+            camera._ground_hit(scene, st.sidx[c], origin[c], cam["height"], d, 0.0)
+            for c, d in zip(chunks, dirs)],
+        f"camera: box hits ([rows, {P}, {targets[0].shape[1]} boxes] slabs)": lambda: [
+            camera._box_hits(origin[c], cam["height"], d, *(x[c] for x in targets[:4]),
+                             t_hgt[c], targets[4][c]) for c, d in zip(chunks, dirs)],
+        "camera (whole render, all modalities)": lambda: env._render_frame(st),
+        "image obs (render + frame stack)": lambda: env._image_obs(env._last_obs),
+        "state observation (lidar + detector clouds)": lambda: env._observe(st, zeros, zeros),
+    }
+    print(json.dumps(dict(phase="image_obs", card=card, num_envs=E, camera=[modality, w, h],
+                          chunk_rows=rows, chunks=len(chunks), steps=args.steps, **row,
+                          stages=stage_profile(stages))), flush=True)
+    del env, dirs
+
+    env = TopDownMetaDrive(cs.TOP_DOWN, device="cuda")
+    E = env.num_envs
+    act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
+    env.reset(seed=0)
+    row = step_profile(card, "top_down", E, lambda: env.step(act), args.steps, args.table)
+    st = env._state
+    tex, org = env._map_textures()
+    R, dist = env.config["resolution"], env.config["max_distance"]
+    fwd_ax, side_ax = top_down._pixel_axes(R, R, 2 * dist / R, st.sidx.device)
+    fwd_g, side_g, hv, rv, world = top_down._ego_grid(st.ego, fwd_ax, side_ax)
+    sample = top_down._sampler(tex, org, st.sidx, world)
+    ego, npc = st.ego, st.npc
+    K = ego.past_pos.shape[1]
+    unit = torch.ones((E, K), device="cuda")
+    ones = torch.ones((E, 1), dtype=torch.bool, device="cuda")
+    stamp = lambda *a: top_down._stamp_obbs(fwd_g, side_g, hv, rv, ego, *a)
+    frame = env._last_obs
+    none_done = torch.zeros(E, dtype=torch.bool, device="cuda")
+    stages = {
+        "BEV ego grid + texture samples (3 layers, 4 corners)": lambda: [
+            sample(ch) for ch in range(3)] + [top_down._sampler(tex, org, st.sidx, world)],
+        f"BEV stamps: {npc.pos.shape[1]} NPCs": lambda: stamp(
+            npc.pos, npc.heading, npc.params.length, npc.params.width, npc.active),
+        "BEV stamps: ego box": lambda: stamp(ego.pos[:, None], ego.heading[:, None],
+                                             ego.params.length[:, None],
+                                             ego.params.width[:, None], ones),
+        f"BEV stamps: {K} past positions": lambda: stamp(ego.past_pos, torch.zeros_like(unit),
+                                                         unit, unit, unit > 0),
+        "BEV (whole _observe)": lambda: env._observe(st, None, None),
+        "stack ring (_assemble)": lambda: env._assemble(frame, none_done),
+    }
+    print(json.dumps(dict(phase="top_down", card=card, num_envs=E, steps=args.steps, **row,
+                          stages=stage_profile(stages))), flush=True)
+    return 0
+
+
 def count_ops():
     """Aten operators of one step of chip_smoke.py's envs on the CPU."""
     import torch
@@ -400,14 +499,18 @@ def count_ops():
             ("marl_40", port.MultiAgentRoundaboutEnv, dict(cs.MARL_40, num_envs=2)),
             ("marl_tollgate", port.MultiAgentTollgateEnv, dict(cs.MARL_TOLLGATE, num_envs=2)),
             ("mixed_traffic", port.MixedTrafficEnv, dict(cs.MIXED_TRAFFIC, num_envs=16)),
-            ("ai_protect_noise", port.MetaDriveEnv, dict(cs.AI_PROTECT_NOISE, num_envs=16)))
+            ("ai_protect_noise", port.MetaDriveEnv, dict(cs.AI_PROTECT_NOISE, num_envs=16)),
+            ("image_obs", port.MetaDriveEnv, dict(cs.IMAGE_OBS, num_envs=4)),
+            ("top_down", port.TopDownMetaDrive, dict(cs.TOP_DOWN, num_envs=16)))
     for name, cls, cfg in envs:
         env = cls(cfg, device="cpu")
         act = torch.tensor([[0.0, 1.0]] * env.num_envs)
         env.reset(seed=0)
         env.rollout(3, actions=act, collect=())
-        # the AI protector acts only through `step`
-        step = ((lambda: env.step(act)) if cfg.get("use_AI_protector")
+        # the AI protector, the camera frame stack and the top-down ring act
+        # only through `step`
+        step = ((lambda: env.step(act))
+                if cfg.get("use_AI_protector") or name in ("image_obs", "top_down")
                 else (lambda: env.rollout(1, actions=act, collect=())))
         row = dict(env=name, rows=env.num_envs, step_ops=ops(step))
         if hasattr(env, "_npc_expert_params"):
