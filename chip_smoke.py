@@ -154,9 +154,37 @@ needs one CUDA device, and prints one JSON line per phase:
                  difference past 5e-6 (gradients near zero), at most 16
                  such elements
 
+28. sharded_pg   (28-32 run after 25 and before 26, which runs last) the
+                 data-parallel layer (metadrive_ped_torch/parallel):
+                 the main path's config (8192 envs) unsharded and through
+                 ShardedEnv over [cuda:0, cuda:0] (and over every device
+                 where there are more), 200 steps each as 4 through
+                 `rollout`: the largest obs and reward gaps (at most 1e-5
+                 and 1e-6, tests/test_parallel.py's tolerance), flags
+                 equal, env-steps/s of both and their ratio, kernel
+                 launches and device ms a step of both (profiler), kernel
+                 launches shards x (steps + 1), each shard's on its own
+                 device, and one more step of both under
+                 set_sync_debug_mode("error"); then the kernel against
+                 its plain version at the first shard's shapes (E = 4096)
+29. sharded_noise  as 28 with lidar noise (gaussian 0.05, dropout 0.1: the
+                 key folds in the whole batch's step counts, each shard
+                 draws its rows of the batch's noise), 10 steps
+30. sharded_marl MultiAgentRoundaboutEnv at 256 envs x 8 agents, sharded by
+                 whole envs, 10 steps; no kernel launch
+31. sharded_scenario  ScenarioEnv with reactive traffic on the synthetic
+                 scenes at 1024 envs, 50 steps
+32. distributed  two processes on cuda:0 through init_distributed (gloo,
+                 a file:// store, every wait with a timeout), each the main
+                 path's config at 4096 envs with worker_index = rank and
+                 num_workers = 2, 50 steps: disjoint scenario strides, the
+                 all-gathered mean rewards equal on both ranks, steps + 1
+                 kernel launches in each, one more step under
+                 set_sync_debug_mode("error")
+
 The expert's products need float32 matmuls in full precision: the device
 phase asserts that TF32 is off. Then the kernels line (launches summed over
-the env phases 4, 6-8, 10-13, 15-16, 18-24), the card's name and
+the env phases 4, 6-8, 10-13, 15-16, 18-24, 28-32), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
 raises and exits non-zero.
 """
@@ -267,6 +295,17 @@ CAMERA_TOL = dict(depth=1e-5, rgb=1e-5, semantic=0.0, instance=1e-6)
 # (rotation 7, three slabs 30, entry / exit / hit 8, nearest 5)
 CAMERA_OPS = dict(segment=25, lane=52, box=50)
 CAMERA_OUT_FLOATS = 10  # depth 1, semantic 3, rgb 3, instance 3 per pixel
+# The data-parallel phases: the main path, the main path with lidar noise,
+# the `marl` scene at 256 x 8 and the reactive scenario replay at 1024
+# envs, unsharded and sharded; then two processes on one card.
+SHARDED_NOISE = dict(MAIN_PATH, vehicle_config=dict(
+    MAIN_PATH["vehicle_config"], lidar=dict(num_lasers=240, gaussian_noise=0.05,
+                                            dropout_prob=0.1)))
+SHARDED_MARL = dict(num_envs=256, num_agents=8)
+SHARDED_SCENARIO = dict(SCENARIO_REACTIVE, num_envs=1024)
+SHARDED_NOISE_STEPS, SHARDED_MARL_STEPS, SHARDED_SCENARIO_STEPS = 10, 10, 50
+SHARD_OBS_TOL, SHARD_REWARD_TOL = 1e-5, 1e-6
+DIST_ENVS, DIST_STEPS, DIST_TIMEOUT = 4096, 50, 300
 DEVICE = "cuda"
 STEPS = 200
 TIMED_FROM = 100
@@ -1410,8 +1449,214 @@ def render_card_vs_cpu(card):
         raise AssertionError(f"render_card_vs_cpu: render or ring differ: {row}")
 
 
+def sharded_meshes():
+    """[cuda:0, cuda:0] (one card's batch in two), and every device where
+    there are more than one."""
+    import torch
+    meshes = [("cuda:0", "cuda:0")]
+    if torch.cuda.device_count() > 1:
+        meshes.append(tuple(f"cuda:{i}" for i in range(torch.cuda.device_count())))
+    return meshes
+
+
+def drive_checked_last(env, collect, steps):
+    """As `drive`, but the step checked for host syncs is one more step
+    after the run: these runs collect the reward, whose mean `rollout`
+    reads on the host. Returns (the collected fields [steps, rows], the
+    seconds of the second half, kernel launches in all and by device)."""
+    import torch
+
+    from metadrive_ped_torch.ops import ray_segment as rs
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(env.num_envs, 2).contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    rs.launches = 0
+    rs.launches_by_device.clear()
+    env.reset(seed=0)
+    warm, _ = env.rollout(steps // 2, actions=act, collect=collect)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = env.rollout(steps - steps // 2, actions=act, collect=collect)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_device = rs.launches, dict(rs.launches_by_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env.rollout(1, actions=act, collect=())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return {k: torch.cat([warm[k], timed[k]]) for k in collect}, seconds, launches, by_device
+
+
+def drive_sharded(phase, make_env, cfg, card, steps, kernel_rows=None):
+    """One config unsharded, then through ShardedEnv over each mesh of
+    `sharded_meshes`, reset with one seed and driven at full throttle: the
+    sharded outputs against the unsharded ones, rates, launches of a step,
+    and the kernel's launches by device. With ``kernel_rows``, the kernel
+    against its plain version at the first shard's shapes is appended to
+    it. Returns the kernel launches of the phase."""
+    import torch
+
+    from metadrive_ped_torch.ops import ray_segment as rs
+    from metadrive_ped_torch.parallel import ShardedEnv, make_mesh
+    collect = ("obs", "reward", "terminated", "truncated")
+    timed = steps - steps // 2
+
+    def run(env):
+        outs, seconds, launches, by_device = drive_checked_last(env, collect, steps)
+        act = torch.tensor([0.0, 1.0], device=DEVICE).expand(env.num_envs, 2).contiguous()
+        per_step, device_ms = step_launches(env, act, steps=1)
+        rate = dict(env_steps_per_s=cfg["num_envs"] * timed / seconds,
+                    row_steps_per_s=env.num_envs * timed / seconds,
+                    launches_per_step=per_step, device_ms_per_step=device_ms,
+                    kernel_launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated())
+        return outs, rate, by_device
+
+    t_phase = time.perf_counter()
+    plain = make_env(cfg, device=DEVICE)
+    detectors = plain._line_table is not None
+    ref, plain_rate, _ = run(plain)
+    launches = plain_rate["kernel_launches"]
+    expected_plain = steps + 1 if detectors else 0
+    failures = [] if launches == expected_plain else [
+        f"unsharded kernel launches {launches}, expected {expected_plain}"]
+    for mesh in sharded_meshes():
+        mesh = make_mesh(mesh)
+        # the sharded env wraps the same env: its shards are views of it
+        senv = ShardedEnv(plain, mesh)
+        outs, rate, by_device = run(senv)
+        if kernel_rows is not None and len(kernel_rows) == 0:
+            kernel_rows.append(kernel_case(f"{phase}_shard", detector_args(senv.shards[0]),
+                                           iters=20))
+        del senv
+        gap = lambda k: float((outs[k] - ref[k]).abs().max())
+        obs_err, rew_err = gap("obs"), gap("reward")
+        flags = sum(int((outs[k] != ref[k]).sum()) for k in ("terminated", "truncated"))
+        expected = {d.index: mesh.count(d) * (steps + 1) for d in set(mesh)} if detectors else {}
+        launches += rate["kernel_launches"]
+        emit(phase=phase, mesh=[str(d) for d in mesh], num_envs=cfg["num_envs"],
+             rows=int(ref["reward"].shape[1]), steps=steps,
+             rate_window=f"steps {steps // 2}-{steps}", unsharded=plain_rate, sharded=rate,
+             sharded_over_unsharded=rate["env_steps_per_s"] / plain_rate["env_steps_per_s"],
+             obs_max_abs_err=obs_err, reward_max_abs_err=rew_err,
+             tol=dict(obs=SHARD_OBS_TOL, reward=SHARD_REWARD_TOL), flag_mismatches=flags,
+             episodes_finished=int((ref["terminated"] | ref["truncated"]).sum()),
+             kernel_launches_by_device={str(k): v for k, v in by_device.items()},
+             expected_launches_by_device={str(k): v for k, v in expected.items()},
+             host_sync_checked_step=steps + 1, phase_seconds=time.perf_counter() - t_phase,
+             card=card)
+        if not (obs_err <= SHARD_OBS_TOL and rew_err <= SHARD_REWARD_TOL and flags == 0):
+            failures.append(f"{mesh}: sharded outputs differ from the unsharded ones")
+        if by_device != expected or rate["kernel_launches"] != sum(expected.values()):
+            failures.append(f"{mesh}: kernel launches {by_device}, expected {expected}")
+        del outs
+    if failures:
+        raise AssertionError(f"{phase}: " + "; ".join(failures))
+    return launches
+
+
+def dist_worker(rank, init_method):
+    """One rank of the `distributed` phase: the main path's config at
+    DIST_ENVS envs over this rank's stride of the scenarios, driven on
+    cuda:0; prints one RESULT line of JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.parallel import init_distributed
+    rank, world = init_distributed(init_method, 2, rank, backend="gloo", timeout=DIST_TIMEOUT)
+    try:
+        env = MetaDriveEnv(dict(MAIN_PATH, num_envs=DIST_ENVS, worker_index=rank,
+                                num_workers=world), device="cuda:0")
+        outs, seconds, launches, _ = drive_checked_last(env, ("reward", "env_seed"), DIST_STEPS)
+        mine = float(outs["reward"].mean())
+        gathered = [torch.zeros(1, dtype=torch.float64) for _ in range(world)]
+        dist.all_gather(gathered, torch.tensor([mine], dtype=torch.float64))
+        print("RESULT " + json.dumps(dict(
+            rank=rank, world=world, seeds=env._seeds.tolist(),
+            seen=sorted(set(outs["env_seed"].flatten().tolist())), mean_reward=mine,
+            gathered=[float(g) for g in gathered], kernel_launches=launches,
+            env_steps_per_s=DIST_ENVS * (DIST_STEPS - DIST_STEPS // 2) / seconds)), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def drive_distributed(card):
+    """Two ranks of `dist_worker` on cuda:0 through a file:// store; every
+    wait has a timeout. Returns the kernel launches of both ranks."""
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        init = "file://" + os.path.join(d, "store")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank",
+                                   str(r), "--dist-init", init],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate(timeout=60)
+    results = {}
+    for out in outs:
+        lines = [line for line in out.splitlines() if line.startswith("RESULT ")]
+        if not lines:
+            raise AssertionError(f"distributed: a rank printed no result:\n{out[-3000:]}")
+        r = json.loads(lines[0][len("RESULT "):])
+        r["backend_line"] = next((line for line in out.splitlines()
+                                  if line.startswith("init_distributed:")), None)
+        results[r["rank"]] = r
+    r0, r1 = results.get(0), results.get(1)
+    ok = (r0 is not None and r1 is not None and r0["world"] == r1["world"] == 2
+          and not set(r0["seeds"]) & set(r1["seeds"])
+          and set(r0["seen"]) <= set(r0["seeds"]) and set(r1["seen"]) <= set(r1["seeds"])
+          and r0["gathered"] == r1["gathered"] == [r0["mean_reward"], r1["mean_reward"]]
+          and r0["kernel_launches"] == r1["kernel_launches"] == DIST_STEPS + 1)
+    emit(phase="distributed", ranks=2, backend="gloo", device="cuda:0", num_envs_per_rank=DIST_ENVS,
+         steps=DIST_STEPS, results=[results.get(0), results.get(1)],
+         phase_seconds=time.perf_counter() - t_phase, card=card)
+    if not ok:
+        raise AssertionError("distributed: strides, gathered rewards or launches are wrong")
+    return r0["kernel_launches"] + r1["kernel_launches"]
+
+
+def drive_data_parallel(card, synthetic):
+    """Phases 28-32; returns (their kernel launches by phase, the kernel
+    against its plain version at a sharded_pg shard's shapes). The PG
+    phases build the main path's scene pack once (`map_pack_file`)."""
+    import tempfile
+
+    import metadrive_ped_torch as port
+    kernel_rows = []
+    with tempfile.TemporaryDirectory() as d:
+        pack = port.MetaDriveEnv(MAIN_PATH, device=DEVICE).dump_all_maps(
+            os.path.join(d, "main_path.pkl"))
+        launches = dict(
+            sharded_pg=drive_sharded("sharded_pg", port.MetaDriveEnv,
+                                     dict(MAIN_PATH, map_pack_file=pack), card, STEPS,
+                                     kernel_rows),
+            sharded_noise=drive_sharded("sharded_noise", port.MetaDriveEnv,
+                                        dict(SHARDED_NOISE, map_pack_file=pack), card,
+                                        SHARDED_NOISE_STEPS))
+    launches.update(
+        sharded_marl=drive_sharded("sharded_marl", port.MultiAgentRoundaboutEnv, SHARDED_MARL,
+                                   card, SHARDED_MARL_STEPS),
+        sharded_scenario=drive_sharded("sharded_scenario", port.ScenarioEnv,
+                                       dict(SHARDED_SCENARIO, scenario_data=synthetic), card,
+                                       SHARDED_SCENARIO_STEPS),
+        distributed=drive_distributed(card))
+    return launches, kernel_rows[0]
+
+
 def main():
     import torch
+    if "--dist-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        dist_worker(int(args["--dist-rank"]), args["--dist-init"])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
@@ -1626,6 +1871,9 @@ def main():
     drive_top_down(card)
     phase_launches["top_down"] = 0
     render_card_vs_cpu(card)
+    parallel_launches, shard_row = drive_data_parallel(card, synthetic)
+    phase_launches.update(parallel_launches)
+    rows.append(shard_row)
     params, batch, _ = drive_ppo(card)
     phase_launches["ppo_train"] = 0
     ppo_card_vs_cpu(params, batch)

@@ -65,11 +65,14 @@ def prng_key(seed, device=None):
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64, device=device)
 
 
-def _hash_counters(key, n):
-    """threefry2x32(key, (0, i)) for i < n: two [..., n] tensors."""
+def _hash_counters(key, n, offset=0):
+    """threefry2x32(key, (0, i)) for offset <= i < offset + n: two [..., n]
+    tensors."""
+    if offset < 0 or offset + n > 1 << 32:
+        raise ValueError(f"counters [{offset}, {offset + n}) leave the 32-bit range")
     k0, k1 = key[..., 0:1], key[..., 1:2]
     return threefry2x32(k0, k1, torch.zeros((), dtype=torch.int64, device=key.device),
-                        torch.arange(n, dtype=torch.int64, device=key.device))
+                        torch.arange(offset, offset + n, dtype=torch.int64, device=key.device))
 
 
 def split(key, num=2):
@@ -89,20 +92,25 @@ def fold_in(key, data):
     return torch.stack([b0, b1], dim=-1)
 
 
-def random_bits(key, n):
-    """32 random bits at each of n flat positions: [..., 2] -> [..., n]."""
-    b0, b1 = _hash_counters(key, n)
+def random_bits(key, n, offset=0):
+    """32 random bits at each of n flat positions from ``offset`` on:
+    [..., 2] -> [..., n]. The bits at positions [offset, offset + n) of a
+    larger draw are its slice: a shard of rows draws its part of the whole
+    batch's draw."""
+    b0, b1 = _hash_counters(key, n, offset)
     return b0 ^ b1
 
 
-def uniform(key, shape, minval=0.0, maxval=1.0):
+def uniform(key, shape, minval=0.0, maxval=1.0, offset=0):
     """`jax.random.uniform(key, shape, minval=minval, maxval=maxval)` in
-    float32 over [minval, maxval): [..., 2] -> [..., *shape]."""
+    float32 over [minval, maxval): [..., 2] -> [..., *shape]; with
+    ``offset`` the draw of flat positions [offset, offset + prod(shape))
+    of a larger one (`random_bits`)."""
     shape = tuple(shape)
     n = 1
     for d in shape:
         n *= d
-    bits = random_bits(key, n)
+    bits = random_bits(key, n, offset)
     # the 23 high bits become the mantissa of a float in [1, 2)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:
@@ -128,11 +136,11 @@ def _erfinv(x):
     return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
 
 
-def normal(key, shape):
+def normal(key, shape, offset=0):
     """`jax.random.normal(key, shape)` in float32: [..., 2] -> [..., *shape],
-    within 1e-6 of JAX (module docstring)."""
+    within 1e-6 of JAX (module docstring); ``offset`` as for `uniform`."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return float(np.float32(math.sqrt(2.0))) * _erfinv(uniform(key, shape, lo, 1.0))
+    return float(np.float32(math.sqrt(2.0))) * _erfinv(uniform(key, shape, lo, 1.0, offset))
 
 
 def randint(key, shape, minval, maxval):

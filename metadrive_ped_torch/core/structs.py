@@ -36,6 +36,26 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_tensors(fn, x):
+    """``fn`` on every tensor of ``x``: a tensor, a `_Tree`, or a tuple,
+    list or dict of them, nested; anything else comes back as it is."""
+    if torch.is_tensor(x):
+        return fn(x)
+    if isinstance(x, _Tree):
+        return tree_map(lambda v: map_tensors(fn, v), x)
+    if type(x) in (tuple, list):
+        return type(x)(map_tensors(fn, v) for v in x)
+    if type(x) is dict:
+        return {k: map_tensors(fn, v) for k, v in x.items()}
+    return x
+
+
+def take_rows(x, r0, r1, axis=0):
+    """Rows [r0, r1) along ``axis`` of every tensor of ``x`` (`map_tensors`)
+    that has that axis; views, no copy."""
+    return map_tensors(lambda t: t.narrow(axis, r0, r1 - r0) if t.dim() > axis else t, x)
+
+
 def _device_array(a, device):
     """numpy -> tensor with the JAX package's 32-bit dtypes (int64 ->
     int32, float64 -> float32)."""

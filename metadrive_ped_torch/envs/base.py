@@ -18,6 +18,8 @@ spawn slots as the JAX package from the same seed.
 A step makes no host synchronisation: every branch is decided on the host
 from the config, never from tensor values.
 """
+import copy
+
 import numpy as np
 import torch
 
@@ -31,7 +33,8 @@ from metadrive_ped_torch.core import prng
 from metadrive_ped_torch.core.device import resolve_device
 from metadrive_ped_torch.core.logger import get_logger
 from metadrive_ped_torch.core.structs import (
-    PAST_POS_STEPS, EgoState, NpcState, PedState, Scene, SimState, VehicleParams, tree_map,
+    PAST_POS_STEPS, EgoState, NpcState, PedState, Scene, SimState, VehicleParams, map_tensors,
+    take_rows, tree_map,
 )
 from metadrive_ped_torch.mapgen.scene import (
     OBJ_BUILDING, OBJ_CONE, OBJ_WARNING, PED_WALKER, build_scene_pack,
@@ -77,10 +80,25 @@ EXPERT_LIDAR = dict(num_lasers=240, num_others=4)
 
 
 class VectorEnvLoop:
-    """`reset` and the host-sync-free `rollout` loop of a vector env. A
-    subclass gives `device`, `num_envs`, `_reset_impl(rng)`,
-    `_step_impl(state, actions)` and `_rollout_fields(state)`, the state
-    tensors `rollout` can collect by name."""
+    """`reset`, `step` and the host-sync-free `rollout` loop of a vector env.
+
+    A subclass gives `device`, `num_envs`, `_reset_state(rng)`,
+    `_advance(state, actions, prev_obs)`, `_observe(state, *obs_args)` and
+    `_rollout_fields(state)`, the state tensors `rollout` can collect by
+    name. The device work of a step is `_advance` then `_observe`: split, so
+    that `parallel.ShardedEnv` advances every shard before any observes
+    (the lidar noise key reads the whole batch's step counts). The host's
+    work around it, `_step_actions` before and `_reset_outputs` /
+    `_step_outputs` after, runs once for the whole batch; `_frame_obs`
+    builds the rows' user observation from the state observation."""
+
+    # attributes with a row axis (name -> axis), cut to a shard's rows by
+    # `_shard`; every other tensor is a constant of the whole batch
+    _ROW_AXES = dict(_state=0, _last_obs=0)
+    # a shard's first row in the batch, and the batch's step-count sum it
+    # is handed before it observes (`parallel.ShardedEnv`)
+    _row_offset = 0
+    _batch_step_sum = None
 
     def _as_tensor(self, a, dtype):
         if torch.is_tensor(a):
@@ -89,9 +107,61 @@ class VectorEnvLoop:
 
     def reset(self, seed=0):
         rng = prng.prng_key(0 if seed is None else seed, self.device)
-        self._state, obs, info = self._reset_impl(rng)
+        self._state, obs_args, info = self._reset_state(rng)
+        self._last_obs = obs = self._observe(self._state, *obs_args)
+        return self._reset_outputs(self._frame_obs(obs), info)
+
+    def step(self, actions):
+        """One step of every env: the host's action conversion, the rows'
+        step on the device, the host's bookkeeping."""
+        actions = self._step_actions(actions)
+        self._state, obs, reward, terminated, truncated, info = self._step_impl(
+            self._state, actions, self._prev_obs())
         self._last_obs = obs
+        obs = self._frame_obs(obs, terminated, truncated)
+        return self._step_outputs(obs, reward, terminated, truncated, info)
+
+    def _step_impl(self, state, actions, prev_obs=None):
+        state, obs_args, reward, terminated, truncated, info = self._advance(
+            state, actions, prev_obs)
+        return state, self._observe(state, *obs_args), reward, terminated, truncated, info
+
+    # ---- hooks --------------------------------------------------------------
+    def _step_actions(self, actions):
+        """Host side, before a step: the user's actions -> [rows, 2] float32."""
+        return self._as_tensor(actions, torch.float32).reshape(self.num_envs, 2)
+
+    def _prev_obs(self):
+        """The last observation a step reads (None: the step reads none)."""
+        return None
+
+    def _frame_obs(self, obs, terminated=None, truncated=None):
+        """The rows' observation for the user from the state observation
+        ``obs``; called without the done flags at reset, where per-row
+        buffers start afresh."""
+        return obs
+
+    def _reset_outputs(self, obs, info):
+        """Host side, after reset: what `reset` returns."""
         return obs, info
+
+    def _step_outputs(self, obs, reward, terminated, truncated, info):
+        """Host side, after a step: what `step` returns."""
+        return obs, reward, terminated, truncated, info
+
+    def _shard(self, r0, r1, device):
+        """A view of rows [r0, r1) of this env on ``device``: a shallow copy
+        whose tensors lie on ``device``, those of `_ROW_AXES` cut to the
+        rows. It steps its rows as the whole env steps them; its host
+        bookkeeping is unused (`parallel.ShardedEnv` runs that on the whole
+        batch)."""
+        view = copy.copy(self)
+        for name, value in vars(self).items():
+            if name in self._ROW_AXES:
+                value = take_rows(value, r0, r1, self._ROW_AXES[name])
+            setattr(view, name, map_tensors(lambda t: t.to(device), value))
+        view.device, view.num_envs, view._row_offset = device, r1 - r0, r0
+        return view
 
     def rollout(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
         """Run n_steps with no host synchronisation inside the loop.
@@ -119,6 +189,8 @@ class VectorEnvLoop:
 class BaseVectorEnv(VectorEnvLoop):
     """Shared machinery; reward/done/cost live in subclasses
     (mirrors BaseEnv -> MetaDriveEnv in the reference)."""
+
+    _ROW_AXES = dict(VectorEnvLoop._ROW_AXES, _img_stack=0)
 
     @classmethod
     def default_config(cls) -> Config:
@@ -427,32 +499,31 @@ class BaseVectorEnv(VectorEnvLoop):
             throttle = (a // s_dim).float() * t_unit - 1.0
         return torch.stack([steering, throttle], dim=-1)
 
-    def step(self, actions):
-        """One step of every env. With manual_control, the controller is read
-        on the host before the step and its action replaces row 0's. With
-        use_AI_protector, the expert reads the previous observation; only
-        `step` passes it, so `rollout` runs without the protector, as the
-        JAX package's does."""
+    def _step_actions(self, actions):
+        """The converted actions; with manual_control, the controller is read
+        on the host before the step and its action replaces row 0's."""
         actions = self._convert_actions(actions)
         if self._manual_controller is not None:
             manual = self._manual_controller.process_input()
             if manual is not None:
                 manual = torch.as_tensor(np.asarray(manual, np.float32)).to(self.device)
                 actions = torch.cat([manual.reshape(1, 2), actions[1:]])
-        prev_obs = self._last_obs if self.config["use_AI_protector"] else None
-        self._state, obs, reward, terminated, truncated, info = self._step_impl(
-            self._state, actions, prev_obs)
-        self._last_obs = obs
-        if self.config["image_observation"]:
-            obs = self._image_obs(obs)
-        return obs, reward, terminated, truncated, info
+        return actions
 
-    def reset(self, seed=0):
-        obs, info = super().reset(seed)
-        if self.config["image_observation"]:
+    def _prev_obs(self):
+        """With use_AI_protector, the expert reads the previous observation;
+        only `step` passes it, so `rollout` runs without the protector, as
+        the JAX package's does."""
+        return self._last_obs if self.config["use_AI_protector"] else None
+
+    def _frame_obs(self, obs, terminated=None, truncated=None):
+        """With image_observation, {"image": the frame stack, "state": obs};
+        the stack starts afresh at reset."""
+        if not self.config["image_observation"]:
+            return obs
+        if terminated is None:
             self._img_stack = None
-            obs = self._image_obs(obs)
-        return obs, info
+        return self._image_obs(obs)
 
     # ---- camera observation (ImageStateObservation, obs/image_obs.py:16-44;
     #      the frame stack of ImageObservation.observe: roll, newest last) --
@@ -724,7 +795,8 @@ class BaseVectorEnv(VectorEnvLoop):
             return sidx + self.config["start_seed"]
         return vector_lookup(self._seeds, sidx)
 
-    def _reset_impl(self, rng):
+    def _reset_state(self, rng):
+        """(state, the `_observe` arguments, info) of a reset of every env."""
         E = self.num_envs
         keys = prng.split(rng, E + 1)
         # scenario assignment: uniform over [0, num_scenarios)
@@ -732,8 +804,8 @@ class BaseVectorEnv(VectorEnvLoop):
         sidx = prng.randint(keys[0], (E,), 0, self.num_scenarios)
         state = self._spawn(keys[1:], sidx)
         ego_long = self.scene.slot_long[sidx.long(), state.ego.slot.long()]
-        obs = self._observe(state, ego_long, torch.zeros(E, device=self.device))
-        return state, obs, dict(env_seed=self._seed_of(sidx))
+        return state, (ego_long, torch.zeros(E, device=self.device)), dict(
+            env_seed=self._seed_of(sidx))
 
     def _extra_vehicle_targets(self, state):
         """Hook: further vehicle bodies of each row (multi-agent envs: the
@@ -830,13 +902,16 @@ class BaseVectorEnv(VectorEnvLoop):
         sl = self._target_slices
         rng = None
         if lidar_cfg["gaussian_noise"] > 0 or lidar_cfg["dropout_prob"] > 0:
-            rng = prng.fold_in(self._noise_key, state.step_count.sum())
+            # a shard is handed the batch's sum (`_batch_step_sum`)
+            total = (state.step_count.sum() if self._batch_step_sum is None
+                     else self._batch_step_sum)
+            rng = prng.fold_in(self._noise_key, total)
         return state_obs.observe(
             self.scene, state.sidx, state.ego, targets, ego_long, ego_lat,
             num_lasers=lidar_cfg["num_lasers"], lidar_distance=lidar_cfg["distance"],
             num_others=lidar_cfg["num_others"], npc=state.npc,
             gaussian_noise=lidar_cfg["gaussian_noise"], dropout_prob=lidar_cfg["dropout_prob"],
-            rng=rng,
+            rng=rng, row_offset=self._row_offset,
             side_lasers=vc["side_detector"]["num_lasers"],
             side_distance=vc["side_detector"]["distance"],
             lane_line_lasers=vc["lane_line_detector"]["num_lasers"],
@@ -847,7 +922,9 @@ class BaseVectorEnv(VectorEnvLoop):
         )
 
     # ------------------------------------------------------------------ step
-    def _step_impl(self, state, actions, prev_obs=None):
+    def _advance(self, state, actions, prev_obs=None):
+        """The step up to the observation: (state, the `_observe` arguments,
+        reward, terminated, truncated, info)."""
         cfg = self.config
         scene = self.scene
         sidx = state.sidx
@@ -1068,8 +1145,7 @@ class BaseVectorEnv(VectorEnvLoop):
         else:
             ego_long, ego_lat = loc["long"], loc["lat"]
 
-        obs = self._observe(state, ego_long, ego_lat)
-        return state, obs, reward, terminated, truncated, info
+        return state, (ego_long, ego_lat), reward, terminated, truncated, info
 
     # ---- agent policies -----------------------------------------------------
     def _lane_change_actions(self, state, actions):

@@ -44,6 +44,8 @@ class MultiAgentMetaDrive(MetaDriveEnv):
     ``__init__`` ``num_envs`` counts rows (E*A) and ``rollout`` works on
     rows."""
 
+    _ROW_AXES = dict(MetaDriveEnv._ROW_AXES, _others=0)
+
     @classmethod
     def default_config(cls):
         config = super().default_config()
@@ -89,7 +91,17 @@ class MultiAgentMetaDrive(MetaDriveEnv):
     def _rows_to_EA(self, x):
         return x.reshape((self.num_marl_envs, self.agents_per_env) + tuple(x.shape[1:]))
 
-    def _reset_impl(self, rng):
+    def _shard(self, r0, r1, device):
+        """Rows [r0, r1) must hold whole envs: the mutual lidar, the
+        contacts and the respawn stay inside an env."""
+        A = self.agents_per_env
+        if r0 % A or r1 % A:
+            raise ValueError(f"rows [{r0}, {r1}) cut an env of {A} agents")
+        view = super()._shard(r0, r1, device)
+        view.num_marl_envs = (r1 - r0) // A
+        return view
+
+    def _reset_state(self, rng):
         E, A = self.num_marl_envs, self.agents_per_env
         rows = E * A
         keys = prng.split(rng, rows + 2)
@@ -98,8 +110,8 @@ class MultiAgentMetaDrive(MetaDriveEnv):
         slot = self._assign_slots(keys[1], sidx_env).reshape(rows)
         state = self._spawn(keys[2:], sidx, slot)
         ego_long = self.scene.slot_long[sidx.long(), state.ego.slot.long()]
-        obs = self._observe(state, ego_long, torch.zeros(rows, device=self.device))
-        return state, obs, dict(env_seed=self._seed_of(sidx))
+        return state, (ego_long, torch.zeros(rows, device=self.device)), dict(
+            env_seed=self._seed_of(sidx))
 
     def _assign_slots(self, key, sidx_env):
         """Distinct random valid slots per agent within each env
@@ -251,16 +263,13 @@ class MultiAgentMetaDrive(MetaDriveEnv):
             finished = finished & (state.step_count >= self.config["horizon"])
         return self._rows_to_EA(finished).all(dim=1).repeat_interleave(self.agents_per_env)
 
-    # ---- the [E, A, ...] user surface -------------------------------------
-    def reset(self, seed=0):
-        obs, info = super().reset(seed)
+    # ---- the [E, A, ...] user surface: `step` takes actions [E, A, 2] (or
+    #      [E, A] / [E, A, 2] integers with discrete_action) and gives
+    #      [E, A, ...] arrays and info["__all__"] [E] ------------------------
+    def _reset_outputs(self, obs, info):
         return self._rows_to_EA(obs), info
 
-    def step(self, actions):
-        """actions [E, A, 2] (or [E, A] / [E, A, 2] integers with
-        discrete_action); returns [E, A, ...] arrays and info["__all__"]
-        [E]."""
-        obs, reward, terminated, truncated, info = super().step(actions)
+    def _step_outputs(self, obs, reward, terminated, truncated, info):
         r, rows = self._rows_to_EA, self.num_envs
         info = {k: r(v) if torch.is_tensor(v) and tuple(v.shape[:1]) == (rows,) else v
                 for k, v in info.items()}

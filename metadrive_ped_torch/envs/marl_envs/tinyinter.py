@@ -30,6 +30,8 @@ COMM_SPEED_SCALE = 20.0  # tinyinter.py:134 speed_scale
 
 
 class MultiAgentTinyInter(MultiAgentIntersectionEnv):
+    _ROW_AXES = dict(MultiAgentIntersectionEnv._ROW_AXES, _rule_rows=0)
+
     @classmethod
     def default_config(cls):
         config = super().default_config()
@@ -140,17 +142,23 @@ class MultiAgentTinyInter(MultiAgentIntersectionEnv):
             d += self.agents_per_env * res
         return d
 
-    # ---- RL-only env surface (filter_RL_agents, tinyinter.py:374-395) -----
-    def reset(self, seed=0):
-        obs, info = super().reset(seed)
+    # ---- RL-only env surface (filter_RL_agents, tinyinter.py:374-395):
+    #      `step` takes actions [E, num_RL_agents, 2]; the rule rows get
+    #      zeros ------------------------------------------------------------
+    def _reset_outputs(self, obs, info):
+        obs, info = super()._reset_outputs(obs, info)
         return obs[:, :self.num_RL_agents], info
 
-    def step(self, actions):
-        """actions [E, num_RL_agents, 2]; the rule rows get zeros."""
+    def _step_actions(self, actions):
         E, K, A = self.num_marl_envs, self.num_RL_agents, self.agents_per_env
         full = torch.zeros((E, A, 2), device=self.device)
         full[:, :K] = self._as_tensor(actions, torch.float32).reshape(E, K, 2)
-        obs, reward, terminated, truncated, info = super().step(full)
+        return super()._step_actions(full)
+
+    def _step_outputs(self, obs, reward, terminated, truncated, info):
+        obs, reward, terminated, truncated, info = super()._step_outputs(
+            obs, reward, terminated, truncated, info)
+        E, K, A = self.num_marl_envs, self.num_RL_agents, self.agents_per_env
         rl = lambda x: x[:, :K] if torch.is_tensor(x) and x.dim() >= 2 and tuple(x.shape[:2]) == (E, A) else x
         info = {k: rl(v) for k, v in info.items()}
         info["__all__"] = (terminated[:, :K] | truncated[:, :K]).all(dim=1)

@@ -16,7 +16,7 @@ The side detector sees the scenario's continuous lines through the
 ray-segment kernel (ops/ray_segment.py); the lane-line detector is not
 part of this observation and its config is ignored.
 
-A step makes no host synchronisation: `_step_impl` and `rollout` decide
+A step makes no host synchronisation: `_advance` and `rollout` decide
 every branch on the host from the config, never from tensor values.
 """
 import math
@@ -197,22 +197,17 @@ class ScenarioEnv(VectorEnvLoop):
         side = max(vc["side_detector"]["num_lasers"], 2)
         return side + 6 + 1 + NAVI_DIM + vc["lidar"]["num_lasers"]
 
-    def reset(self, seed=0):
-        obs, info = super().reset(seed)
+    def _reset_outputs(self, obs, info):
         self._track_coverage(info)
         info["curriculum_level"] = self.current_level
         info["data_coverage"] = self.data_coverage
         return obs, info
 
-    def step(self, actions):
-        """One step of every env. The per-env results stay on the device;
-        the coverage statistics and, with curriculum_level > 1, the
-        curriculum read ``env_seed`` (and the done flags) on the host, as
-        the JAX package's step does, so this call synchronises with the
-        device once. `rollout` does not."""
-        actions = self._as_tensor(actions, torch.float32).reshape(self.num_envs, 2)
-        self._state, obs, reward, term, trunc, info = self._step_impl(self._state, actions)
-        self._last_obs = obs
+    def _step_outputs(self, obs, reward, term, trunc, info):
+        """The per-env results stay on the device; the coverage statistics
+        and, with curriculum_level > 1, the curriculum read ``env_seed``
+        (and the done flags) on the host, as the JAX package's step does, so
+        `step` synchronises with the device once. `rollout` does not."""
         self._track_coverage(info)
         if self._cur_levels > 1:
             self._curriculum_update(term, trunc, info)
@@ -357,7 +352,7 @@ class ScenarioEnv(VectorEnvLoop):
             phase=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
-    def _reset_impl(self, rng):
+    def _reset_state(self, rng):
         E = self.num_envs
         keys = prng.split(rng, E + 1)
         if self.config["sequential_seed"]:
@@ -366,8 +361,7 @@ class ScenarioEnv(VectorEnvLoop):
         else:
             sidx = prng.randint(keys[0], (E,), 0, self.num_scenarios)
         state = self._spawn(keys[1:], sidx)
-        obs = self._observe(state)
-        return state, obs, dict(env_seed=sidx + self.config["start_scenario_index"])
+        return state, (), dict(env_seed=sidx + self.config["start_scenario_index"])
 
     def _npc_pose(self, state):
         """Replayed (or reactive) traffic pose at the current timestep."""
@@ -560,7 +554,7 @@ class ScenarioEnv(VectorEnvLoop):
 
     def _observe(self, state, cached=None):
         """cached = (long, lat, traj_heading, npc_pose) computed by
-        _step_impl this step, so the polyline localization and the track
+        _advance this step, so the polyline localization and the track
         poses are not computed twice."""
         cfg = self.config
         scene, ego = self.scene, state.ego
@@ -651,7 +645,7 @@ class ScenarioEnv(VectorEnvLoop):
             ))
         return torch.cat(parts, dim=-1)
 
-    def _step_impl(self, state, actions):
+    def _advance(self, state, actions, prev_obs=None):
         cfg = self.config
         scene = self.scene
         E = self.num_envs
@@ -885,5 +879,4 @@ class ScenarioEnv(VectorEnvLoop):
         # car still refreshes once per IDM_ACT_BATCH_SIZE steps
         state = state.replace(phase=(state.phase + 1) % IDM_ACT_BATCH_SIZE)
 
-        obs = self._observe(state, cached=(long, lat, traj_heading, npc_pose))
-        return state, obs, reward, terminated, truncated, info
+        return state, ((long, lat, traj_heading, npc_pose),), reward, terminated, truncated, info

@@ -67,6 +67,8 @@ class TopDownMetaDrive(TopDownSingleFrameMetaDriveEnv):
                       allow_add_new_key=True)
         return config
 
+    _ROW_AXES = dict(TopDownSingleFrameMetaDriveEnv._ROW_AXES, _tf_ring=1)
+
     def __init__(self, config=None, device=None):
         super().__init__(config, device=device)
         self._tf_ring = None  # [(frame_stack - 1) * frame_skip + 1, E, R, R]
@@ -95,14 +97,11 @@ class TopDownMetaDrive(TopDownSingleFrameMetaDriveEnv):
         chans = [road, frame[..., 4]] + [ring[buflen - 1 - i * skip] for i in range(K)]
         return torch.stack(chans, dim=-1)
 
-    def reset(self, seed=0):
-        obs, info = super().reset(seed)
-        self._tf_ring = None
-        return self._assemble(obs), info
-
-    def step(self, actions):
-        obs, r, te, tr, info = super().step(actions)
-        return self._assemble(obs, te | tr), r, te, tr, info
+    def _frame_obs(self, obs, terminated=None, truncated=None):
+        if terminated is None:
+            self._tf_ring = None
+            return self._assemble(obs)
+        return self._assemble(obs, terminated | truncated)
 
 
 class TopDownMetaDriveEnvV2(TopDownMetaDrive):

@@ -130,7 +130,7 @@ def ego_core(scene, sidx, ego):
 
 def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_distance=50.0,
             num_others=0, npc=None, gaussian_noise=0.0, dropout_prob=0.0, rng=None,
-            side_lasers=0, side_distance=50.0,
+            row_offset=0, side_lasers=0, side_distance=50.0,
             lane_line_lasers=0, lane_line_distance=20.0, line_table=None,
             random_agent_model=False, t_radius=None, circle_slice=None):
     """Full observation [E, obs_dim]. ego_long/ego_lat are the current-lane
@@ -140,7 +140,9 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
     mask, lidar.py:28); num_others>0 adds nearest-K vehicle features (needs
     npc). ``gaussian_noise`` / ``dropout_prob`` perturb the lidar cloud with
     draws from the key ``rng`` (LidarStateObservation
-    _add_noise_to_cloud_points, state_obs.py:234-244).
+    _add_noise_to_cloud_points, state_obs.py:234-244); the rows are rows
+    [row_offset, row_offset + E) of the batch, and draw that part of the
+    batch's [rows, num_lasers] noise.
 
     side_lasers/lane_line_lasers > 0 switch the lateral features to detector
     clouds against the lane-line segments, matching the reference's
@@ -187,10 +189,12 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
         )
         if (gaussian_noise > 0 or dropout_prob > 0) and rng is not None:
             k_noise, k_drop = prng.split(rng).unbind(-2)
+            at = row_offset * num_lasers
             if gaussian_noise > 0:
                 cloud = torch.clamp(
-                    cloud + gaussian_noise * prng.normal(k_noise, cloud.shape), 0.0, 1.0)
+                    cloud + gaussian_noise * prng.normal(k_noise, cloud.shape, at), 0.0, 1.0)
             if dropout_prob > 0:
-                cloud = torch.where(prng.uniform(k_drop, cloud.shape) < dropout_prob, 0.0, cloud)
+                cloud = torch.where(prng.uniform(k_drop, cloud.shape, offset=at) < dropout_prob,
+                                    0.0, cloud)
         parts.append(cloud)
     return torch.cat(parts, dim=-1)

@@ -10,6 +10,7 @@ clouds from that table, in one launch of the hand-written kernel in
 csrc/ray_segment.cu for CUDA tensors, or by the plain version for CPU
 tensors. On a CUDA tensor it launches the kernel or raises.
 """
+import collections
 import ctypes
 
 import torch
@@ -17,8 +18,10 @@ import torch
 from metadrive_ped_torch.constants import SEG_BROKEN_LINE, SEG_WHITE_LINE, SEG_YELLOW_LINE
 from metadrive_ped_torch.core import cuda_build
 
-# launches of the kernel since the last reset (set to 0 to start counting)
+# launches of the kernel since the last reset (set to 0 to start counting),
+# in all and by device index (clear to start counting)
 launches = 0
+launches_by_device = collections.Counter()
 
 
 def _min_hit_fraction(origin, dx, dy, max_dist, ax, ay, sx, sy, valid):
@@ -132,7 +135,8 @@ def detector_clouds(origin, sidx, side_dirs, lane_dirs, side_dist, lane_dist, ta
     [0, n_cont) of its scenario, the lane-line detector rows [0, n_any).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    once (none when Rs = Rl = 0). sidx must lie in [0, S): the kernel
+    once (none when Rs = Rl = 0), on their own device's current stream:
+    every input must lie on origin's device. sidx must lie in [0, S): the kernel
     writes NaN for an env whose sidx does not."""
     global launches
     if origin.device.type == "cpu":
@@ -170,4 +174,5 @@ def detector_clouds(origin, sidx, side_dirs, lane_dirs, side_dist, lane_dist, ta
     if err != 0:
         raise RuntimeError(f"ray_segment kernel launch failed: cudaError {err}")
     launches += 1
+    launches_by_device[dev.index] += 1
     return side, lane

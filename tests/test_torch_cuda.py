@@ -146,3 +146,27 @@ def test_tollgate_clouds_through_the_kernel(cuda):
         assert float((a - b).abs().max()) <= 1e-5
         assert int((a < 1).sum()) == int((b < 1).sum())
     assert int((out[0] < 1).sum()) > 0
+
+
+def test_sharded_env_launches_on_each_shards_device(cuda):
+    """ShardedEnv over every card twice over: each shard launches the
+    kernel once a step and at reset, on its own device, and the outputs are
+    the unsharded env's."""
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.ops import ray_segment as rs
+    from metadrive_ped_torch.parallel import ShardedEnv
+    mesh = [f"cuda:{i}" for i in range(torch.cuda.device_count())] * 2
+    cfg = dict(num_envs=4 * len(mesh), map="SC", num_scenarios=2, traffic_density=0.1,
+               vehicle_config=dict(side_detector=dict(num_lasers=16),
+                                   lane_line_detector=dict(num_lasers=4)))
+    plain, sharded = MetaDriveEnv(cfg), ShardedEnv(MetaDriveEnv(cfg), mesh)
+    act = torch.tensor([0.0, 1.0], device="cuda:0").expand(cfg["num_envs"], 2)
+    plain.reset(seed=0)
+    out_p, _ = plain.rollout(5, actions=act, collect=("obs", "reward"))
+    rs.launches_by_device.clear()
+    sharded.reset(seed=0)
+    out_s, _ = sharded.rollout(5, actions=act, collect=("obs", "reward"))
+    torch.cuda.synchronize()
+    assert dict(rs.launches_by_device) == {i: 2 * 6 for i in range(torch.cuda.device_count())}
+    for k in ("obs", "reward"):
+        assert float((out_p[k] - out_s[k]).abs().max()) <= 1e-5

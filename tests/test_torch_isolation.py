@@ -4,7 +4,8 @@ read no file of the JAX package (its rasterizer source and library
 included), every env class (PG, safe, varying dynamics, scenario,
 multi-agent, top-down, the mixed Waymo/PG env and the gym wrapper) needs an
 explicit device="cpu" without a GPU, and chip_smoke.py refuses to run
-without one."""
+without one. The blocked run drives the data-parallel layer (parallel/)
+too."""
 import ast
 import os
 import shutil
@@ -64,6 +65,13 @@ for cls in (MultiAgentRoundaboutEnv, MultiAgentTollgateEnv):
         mobs, *_, minfo = menv.step(np.tile([0.0, 1.0], (2, 4, 1)))
     assert bool(np.isfinite(mobs.numpy()).all()) and tuple(minfo["__all__"].shape) == (2,)
     print("marl", cls.__name__, tuple(mobs.shape))
+from metadrive_ped_torch.parallel import ShardedEnv, init_distributed, make_mesh
+penv = ShardedEnv(MetaDriveEnv(dict(num_envs=4, map="S", num_scenarios=1, traffic_density=0.1),
+                               device="cpu"), make_mesh(["cpu", "cpu"]))
+pobs, _ = penv.reset(seed=0)
+pobs, *_ = penv.step(np.tile([0.0, 1.0], (4, 1)))
+assert init_distributed() == (0, 1)
+print("sharded", tuple(pobs.shape), len(penv.shards))
 from metadrive_ped_torch import MixedTrafficEnv
 xenv = MixedTrafficEnv(dict(num_envs=2, map="S", traffic_density=0.3, rl_agent_ratio=0.5,
                             use_AI_protector=True, vehicle_config=dict(lidar=dict(num_others=4))),
@@ -138,6 +146,7 @@ def test_port_runs_with_jax_blocked():
         assert f"scenario {name} (3, 165)" in out.stdout
     assert "marl MultiAgentRoundaboutEnv (2, 4, 91)" in out.stdout
     assert "marl MultiAgentTollgateEnv (2, 4, 156)" in out.stdout
+    assert "sharded (4, 259) 2" in out.stdout
     assert "mixed (2, 275)" in out.stdout
     assert "gym (259,) (2,)" in out.stdout and "expert (2, 2)" in out.stdout
     assert "mix " in out.stdout
