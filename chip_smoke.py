@@ -182,9 +182,25 @@ needs one CUDA device, and prints one JSON line per phase:
                  kernel launches in each, one more step under
                  set_sync_debug_mode("error")
 
+33-34. marl_bottleneck, marl_bidirection  (33-35 run after 32 and before 26)
+                 the two other multi-agent scenes whose detectors (side 4
+                 and lane-line 4 rays) put the kernel on the multi-agent
+                 path, at 256 envs x the scene's default 20 agents: each
+                 first the kernel against its plain version on the env's
+                 line table (side hits > 0), then as 13 for 100 steps
+                 (steps + 1 launches)
+35. bench_torch  `python3 bench_torch.py --config all --steps 100` in a child
+                 process at bench.py's default widths (pg 8192, safe 4096,
+                 marl 512 x 8, marl_40 256 x 40, scenario and
+                 scenario_replay 4096), then `--config scenario_recorded`
+                 (1024 envs): every family's rate above 0, the last line
+                 with bench.py's keys, and the kernel launched once a
+                 timed step in the scenario families (their side
+                 detector) and never in the others
+
 The expert's products need float32 matmuls in full precision: the device
 phase asserts that TF32 is off. Then the kernels line (launches summed over
-the env phases 4, 6-8, 10-13, 15-16, 18-24, 28-32), the card's name and
+the env phases 4, 6-8, 10-13, 15-16, 18-24, 28-35), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
 raises and exits non-zero.
 """
@@ -196,7 +212,8 @@ import sys
 import time
 from operator import attrgetter
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 # The main path: bench.py's `pg` protocol with the detectors of the
 # reference's Waymo FPS protocol (bench.py:57-70) switched on.
@@ -306,6 +323,19 @@ SHARDED_SCENARIO = dict(SCENARIO_REACTIVE, num_envs=1024)
 SHARDED_NOISE_STEPS, SHARDED_MARL_STEPS, SHARDED_SCENARIO_STEPS = 10, 10, 50
 SHARD_OBS_TOL, SHARD_REWARD_TOL = 1e-5, 1e-6
 DIST_ENVS, DIST_STEPS, DIST_TIMEOUT = 4096, 50, 300
+# The two multi-agent scenes whose detectors put the kernel on the path
+# besides the tollgate, at 256 envs x the scene's default agents; then
+# bench_torch.py (the port's bench.py) at its default widths, in a child
+# process. The scenario families' envs carry a side detector: the kernel
+# launches once a timed step there and never in the other families.
+KERNEL_SCENES = (("marl_bottleneck", "MultiAgentBottleneckEnv"),
+                 ("marl_bidirection", "MultiAgentBidirectionEnv"))
+KERNEL_SCENE_ENVS, KERNEL_SCENE_STEPS = 256, 100
+BENCH_STEPS, BENCH_TIMEOUT = 100, 900
+BENCH_ROWS = dict(pg=8192, safe=4096, marl=512 * 8, marl_40=256 * 40, scenario=4096,
+                  scenario_replay=4096, scenario_recorded=1024)
+BENCH_DETECTORS = ("scenario", "scenario_replay", "scenario_recorded")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 DEVICE = "cuda"
 STEPS = 200
 TIMED_FROM = 100
@@ -323,12 +353,6 @@ OPS_PER_PAIR = 21
 
 def emit(**fields):
     print(json.dumps(fields), flush=True)
-
-
-def card_name_and_power():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters, warmup=2):
@@ -1651,6 +1675,74 @@ def drive_data_parallel(card, synthetic):
     return launches, kernel_rows[0]
 
 
+def drive_kernel_scene(phase, name, card):
+    """A multi-agent scene of KERNEL_SCENES at KERNEL_SCENE_ENVS envs: the
+    kernel against its plain version on the env's line table, then
+    `drive_marl` for KERNEL_SCENE_STEPS steps with steps + 1 launches.
+    Returns (the kernel's row, the phase's launches)."""
+    import metadrive_ped_torch as port
+    env = getattr(port, name)(dict(num_envs=KERNEL_SCENE_ENVS), device=DEVICE)
+    env.reset(seed=0)
+    krow = kernel_case(phase, detector_args(env), iters=20)
+    if krow["hits"][0] == 0:
+        raise AssertionError(f"{phase}: the side detector saw no line")
+    launches = drive_marl(phase, env, card, expected_launches=KERNEL_SCENE_STEPS + 1,
+                          steps=KERNEL_SCENE_STEPS)["ray_segment_launches"]
+    return krow, launches
+
+
+def run_bench(args, card):
+    """``python3 bench_torch.py *args`` in a child process, with a timeout:
+    (its per-family lines, its last line). Checks the card line, each
+    family's width, rate and timed kernel launches, and the last line's
+    keys; emits one bench_torch line."""
+    import torch
+    torch.cuda.empty_cache()  # leave the card's memory to the child
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"), *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"bench_torch.py {args} exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    families = [json.loads(line) for line in lines if line.startswith('{"family"')]
+    last = json.loads(lines[-1])
+    emit(phase="bench_torch", args=list(args), card_line=lines[0], families=families, last=last,
+         seconds=seconds, card=card)
+    failures = [] if lines[0] == card else [f"card line {lines[0]!r}, expected {card!r}"]
+    for row in families:
+        fam = row["family"]
+        expected = BENCH_STEPS if fam in BENCH_DETECTORS else 0
+        if row["ray_segment_launches"] != expected:
+            failures.append(f"{fam}: kernel launched {row['ray_segment_launches']} times in the "
+                            f"timed call, expected {expected}")
+        if row["rows"] != BENCH_ROWS[fam] or row["steps"] != BENCH_STEPS:
+            failures.append(f"{fam}: {row['rows']} rows x {row['steps']} steps, expected "
+                            f"{BENCH_ROWS[fam]} x {BENCH_STEPS}")
+        if not row["rate"] > 0:
+            failures.append(f"{fam}: rate {row['rate']}")
+    keys = BENCH_KEYS | ({"configs"} if len(families) > 1 else set())
+    if set(last) != keys:
+        failures.append(f"last line keys {sorted(last)}, expected {sorted(keys)}")
+    if failures:
+        raise AssertionError("bench_torch: " + "; ".join(failures))
+    return families, last
+
+
+def drive_bench(card):
+    """bench_torch.py with every default family, then scenario_recorded:
+    returns the kernel's launches in their timed calls."""
+    families, last = run_bench(["--config", "all", "--steps", str(BENCH_STEPS)], card)
+    default = tuple(f for f in BENCH_ROWS if f != "scenario_recorded")
+    if (tuple(r["family"] for r in families) != default or set(last["configs"]) != set(default)
+            or not all(v > 0 for v in last["configs"].values())
+            or last["value"] != last["configs"]["pg"] or last["metric"] != "env_steps_per_s_1chip"):
+        raise AssertionError(f"bench_torch: the default run's line is wrong: {last}")
+    recorded, _ = run_bench(["--config", "scenario_recorded", "--steps", str(BENCH_STEPS)], card)
+    return sum(r["ray_segment_launches"] for r in families + recorded)
+
+
 def main():
     import torch
     if "--dist-rank" in sys.argv:
@@ -1666,6 +1758,7 @@ def main():
                 matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
     if tf32 != dict(matmul_precision="highest", matmul_allow_tf32=False):
         raise AssertionError(f"float32 matmuls must run without TF32: {tf32}")
+    from bench_torch import card_name_and_power
     from metadrive_ped_torch import MetaDriveEnv
     from metadrive_ped_torch.core import cuda_build
     from metadrive_ped_torch.ops import ray_segment as rs
@@ -1874,6 +1967,10 @@ def main():
     parallel_launches, shard_row = drive_data_parallel(card, synthetic)
     phase_launches.update(parallel_launches)
     rows.append(shard_row)
+    for phase, name in KERNEL_SCENES:
+        krow, phase_launches[phase] = drive_kernel_scene(phase, name, card)
+        rows.append(krow)
+    phase_launches["bench_torch"] = drive_bench(card)
     params, batch, _ = drive_ppo(card)
     phase_launches["ppo_train"] = 0
     ppo_card_vs_cpu(params, batch)

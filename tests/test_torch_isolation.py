@@ -1,5 +1,6 @@
-"""metadrive_ped_torch (its examples included) and chip_smoke.py stand
-alone: they import neither jax, flax, metadrive_ped_tpu nor bench.py and
+"""metadrive_ped_torch (its examples included), chip_smoke.py,
+bench_torch.py and the port's tools stand alone: they import neither jax,
+flax, metadrive_ped_tpu nor bench.py and
 read no file of the JAX package (its rasterizer source and library
 included), every env class (PG, safe, varying dynamics, scenario,
 multi-agent, top-down, the mixed Waymo/PG env and the gym wrapper) needs an
@@ -7,6 +8,7 @@ explicit device="cpu" without a GPU, and chip_smoke.py refuses to run
 without one. The blocked run drives the data-parallel layer (parallel/)
 too."""
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -20,7 +22,7 @@ import metadrive_ped_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "metadrive_ped_tpu", "bench")
 
-_BLOCKED_RUN = f"""
+_BLOCK = f"""
 import sys
 
 
@@ -34,6 +36,8 @@ def no_jax_package_files(event, args):
 sys.addaudithook(no_jax_package_files)
 for name in {BLOCKED!r}:
     sys.modules[name] = None  # any import of these raises ImportError
+"""
+_BLOCKED_RUN = _BLOCK + f"""
 import numpy as np
 from metadrive_ped_torch import MetaDriveEnv
 env = MetaDriveEnv(dict(num_envs=4, map="SC", num_scenarios=2, traffic_density=0.1,
@@ -103,7 +107,8 @@ with tempfile.TemporaryDirectory() as d:
     genv.dump_all_maps(os.path.join(d, "maps.pkl"))
     draw_map(genv.get_map_features(0), save_path=os.path.join(d, "map.png"))
     print("expert", torch_expert_action(np.zeros((2, 275), np.float32), device="cpu").shape)
-    for name in ("train_ppo", "procedural_generation", "verify_headless_installation"):
+    for name in ("train_ppo", "procedural_generation", "verify_headless_installation",
+                 "scaling_table"):
         importlib.import_module("metadrive_ped_torch.examples." + name)
     from metadrive_ped_torch.examples import train_ppo
     train_ppo.main(["--cpu", "--num-envs", "2", "--rollout", "4", "--iters", "1",
@@ -132,6 +137,16 @@ print("stepped", tuple(obs.shape))
 """
 
 
+_BLOCKED_BENCH = _BLOCK + f"""
+import runpy
+sys.argv = ["bench_torch.py", "--device", "cpu", "--quick", "--config", "pg", "--num-envs", "4",
+            "--steps", "2"]
+runpy.run_path("bench_torch.py", run_name="__main__")
+loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
+assert not loaded, loaded
+"""
+
+
 def _run(args, cwd):
     env = dict(os.environ, PYTHONPATH=ROOT if cwd == ROOT else "")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
@@ -154,6 +169,15 @@ def test_port_runs_with_jax_blocked():
     assert "camera (2, 24, 32, 3, 3) [(512, 512, 3), (144, 256, 3), (80, 320, 3)]" in out.stdout
 
 
+def test_bench_torch_runs_with_jax_blocked():
+    out = _run(["-c", _BLOCKED_BENCH], ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    family, last = json.loads(lines[-2]), json.loads(lines[-1])
+    assert (family["family"], family["rows"], family["steps"], family["scenarios"]) == ("pg", 4, 2, 4)
+    assert set(last) == {"metric", "value", "unit", "vs_baseline"} and last["value"] > 0
+
+
 def _port_sources():
     pkg = os.path.join(ROOT, "metadrive_ped_torch")
     for dirpath, _, files in os.walk(pkg):
@@ -161,7 +185,9 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "bench_torch.py")
     yield os.path.join(ROOT, "tools", "profile_torch_step.py")
+    yield os.path.join(ROOT, "tools", "expert_attribution_torch.py")
 
 
 def _imported_modules(path):
