@@ -9,8 +9,10 @@ steps / seconds (agent rows in the multi-agent families).
     python3 bench_torch.py [--quick] [--config all|pg|...] [--device cpu]
 
 Prints the card's name and power limit (nvidia-smi), one JSON line per
-family (rows, steps, seconds, rate and the ray-segment kernel's launches
-during the timed call), and last bench.py's line:
+family (rows, steps, seconds, rate, the ray-segment kernel's launches
+during the timed call, and ``graph``: whether every step of the timed call
+was a CUDA-graph replay, metadrive_ped_torch/core/graph.py), and last
+bench.py's line:
 {"metric", "value": <pg>, "unit", "vs_baseline", "configs": {...}}, where
 vs_baseline is against the reference's ~1500 env-steps/s in one process
 (documentation/source/index.rst:18). It runs on the GPU and raises without
@@ -81,8 +83,10 @@ def make_env(family, num_envs, scenarios, device=None):
 
 
 def measure(env, steps):
-    """bench.py's timing of one env: reset, one untimed `rollout`, one timed.
-    Returns (rows, seconds, ray-segment kernel launches of the timed call)."""
+    """bench.py's timing of one env: reset, one untimed `rollout` (on the
+    card it captures the step), one timed. Returns (rows, seconds,
+    ray-segment kernel launches of the timed call, whether each of its
+    steps replayed a graph)."""
     import torch
 
     from metadrive_ped_torch.ops import ray_segment
@@ -94,13 +98,15 @@ def measure(env, steps):
     env.rollout(steps, actions=actions)
     sync()
     ray_segment.launches = 0
+    replays = env._graphs.replays if env._graphs is not None else 0
     t0 = time.perf_counter()
     env.rollout(steps, actions=actions)
     sync()
     seconds = time.perf_counter() - t0
     launches = ray_segment.launches
+    graph = env._graphs is not None and env._graphs.replays - replays == steps
     env.close()
-    return rows, seconds, launches
+    return rows, seconds, launches, graph
 
 
 def card_name_and_power():
@@ -139,12 +145,12 @@ def main(argv=None):
         quick_envs = 64 if fam == "marl_40" else 256
         num_envs = args.num_envs or (quick_envs if args.quick else DEFAULT_ENVS[fam])
         env = make_env(fam, num_envs, scenarios, device)
-        rows, seconds, launches = measure(env, steps)
+        rows, seconds, launches, graph = measure(env, steps)
         rate = rows * steps / seconds
         print(json.dumps(dict(family=fam, device=str(device), num_envs=num_envs, rows=rows,
                               scenarios=scenarios, steps=steps, seconds=seconds, rate=rate,
                               unit="agent-steps/s" if fam.startswith("marl") else "env-steps/s",
-                              ray_segment_launches=launches)), flush=True)
+                              ray_segment_launches=launches, graph=graph)), flush=True)
         results[fam] = round(rate, 1)
 
     lead = families[0] if args.config != "all" else "pg"

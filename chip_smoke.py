@@ -4,7 +4,13 @@
     python3 chip_smoke.py
 
 Runs from any working directory (it puts its own directory on sys.path),
-needs one CUDA device, and prints one JSON line per phase:
+needs one CUDA device, and prints one JSON line per phase. Every env steps
+on the card as the port's users step it: each `step` and `rollout` step is
+one replay of the step captured as a CUDA graph at the first call for its
+key (metadrive_ped_torch/core/graph.py); capture synchronises, so the step
+checked under set_sync_debug_mode("error") is a replayed one, and every
+phase line that steps an env carries "graph": whether its steps replayed
+(false only for ShardedEnv, which steps its shards op by op).
 
 1. device        the card (nvidia-smi name and power limit), torch and CUDA
 2. build         nvcc of every kernel, its seconds and ptxas registers/smem
@@ -20,9 +26,11 @@ needs one CUDA device, and prints one JSON line per phase:
 4. env           the main path at full width: the `pg` bench protocol
                  (bench.py:28-32, 8192 envs) with lidar 240, side detector
                  160 and lane-line detector 12 lasers, full throttle for 200
-                 steps; env-steps/s over steps 100-200, obs checks, episodes
-                 finished, kernel launches (must be steps + 1), and one
-                 step under torch.cuda.set_sync_debug_mode("error")
+                 steps (0-98 through `step`, 99-200 through `rollout`);
+                 env-steps/s over steps 100-200, obs checks, episodes
+                 finished, kernel launches (must be steps + 1), and the
+                 second step under torch.cuda.set_sync_debug_mode("error");
+                 then graph_vs_eager on it (36)
 5. card_vs_cpu   32 envs for 20 steps on the card and on the CPU: obs and
                  reward within 1e-4, discrete flags equal
 6. scenario_replay  ScenarioEnv at the reference's replay-FPS protocol
@@ -31,7 +39,7 @@ needs one CUDA device, and prints one JSON line per phase:
                  (lane-line 12, which ScenarioEnv ignores); the kernel
                  against its plain version on the env's line table (no
                  continuous line on these maps: n_cont = 0), then 200 steps
-                 through `rollout`, the first under
+                 through `rollout`, the second under
                  torch.cuda.set_sync_debug_mode("error"): env-steps/s over
                  steps 100-200, obs checks, launches (steps + 1)
 7. scenario_reactive  bench.py:48-56: the same scenarios at 4096 envs with
@@ -43,7 +51,8 @@ needs one CUDA device, and prints one JSON line per phase:
                  map=3) exported on the card, replayed at 1024 envs with
                  reactive traffic for 200 steps (episodes truncate at 100 and
                  auto-reset); the kernel against its plain version on the
-                 env's table of real lines first (side hits must be > 0)
+                 env's table of real lines first (side hits must be > 0);
+                 then graph_vs_eager on it (36)
 9. scenario_card_vs_cpu  32 envs for 20 steps of 8 on the card and on the
                  CPU: obs and reward within 1e-4, every bool flag equal
 10. safe         SafeMetaDriveEnv at the `safe` bench protocol
@@ -60,7 +69,8 @@ needs one CUDA device, and prints one JSON line per phase:
 13. marl_tollgate  MultiAgentTollgateEnv, 256 envs x 40 agents: the kernel
                  against its plain version on the tollgate's line table
                  (side 72 and lane-line 4 rays at 20 m, side hits > 0),
-                 then as 11 with steps + 1 launches
+                 then as 11 with steps + 1 launches; then graph_vs_eager
+                 on it (36)
 14. marl_card_vs_cpu  roundabout 4 x 8 and tollgate 2 x 8 for 20 steps on
                  the card and on the CPU: obs and reward within 1e-4, every
                  bool flag, dead_timer and slot equal
@@ -81,8 +91,8 @@ needs one CUDA device, and prints one JSON line per phase:
                  (gaussian 0.05, dropout 0.1), steering 0.5 at full
                  throttle, through `step` for 200 steps (the protector reads
                  the previous observation only there): env-steps/s,
-                 takeovers counted (one at least), no kernel launch, one
-                 step under set_sync_debug_mode("error")
+                 takeovers counted (one at least), no kernel launch, the
+                 second step under set_sync_debug_mode("error")
 17. slice4_card_vs_cpu  as 5 for 20 steps at small widths on MixedTrafficEnv,
                  the lane-change policy, the AI protector with noise, the
                  roundabout with rl_agent_ratio 0.5, and the bottleneck and
@@ -97,7 +107,8 @@ needs one CUDA device, and prints one JSON line per phase:
                  and a PG map 3, both with the replay protocol's detectors:
                  the kernel against its plain version on each half, then 4
                  resets x 50 steps (both suites must run; one launch at each
-                 reset and each step)
+                 reset and each step; each suite's first reset captures its
+                 step and checks a replayed one for host syncs, untimed)
 20. opendrive    a PG env on the two-road OpenDrive map at 8192 envs
                  (traffic 0.2, side 160, lane-line 12): the kernel against
                  its plain version on the map's lines, then as 4, and the
@@ -135,15 +146,18 @@ needs one CUDA device, and prints one JSON line per phase:
                  (8192 envs, map=3, 64 scenarios, traffic 0.05, lidar 240
                  and 4 neighbours): 3 iterations of a 128-step collection
                  through `rollout` with the sampling policy (one step under
-                 set_sync_debug_mode("error")), GAE, and a PPO update of
+                 set_sync_debug_mode("error"); a new policy closure each
+                 iteration captures once, as JAX re-jits), GAE, and a PPO
+                 update of
                  4 epochs x 8 minibatches of 131,072 rows; one line per
                  iteration (collect env-steps/s, update ms, samples/s, loss,
                  parameter change) and a summary (finite losses, parameters
                  that moved, TF32 off; launches and device ms of a
                  collection step and of an update minibatch, from the
-                 profiler). It runs last: after its profiled update, the
-                 profiles of later phases saw no launch of the detector
-                 kernel
+                 profiler); then graph_vs_eager on one collection of the
+                 trained policy (36). It runs last: after its profiled
+                 update, the profiles of later phases saw no launch of the
+                 detector kernel
 27. ppo_card_vs_cpu  one update (1 epoch, 2 minibatches) of 131,072 rows of
                  the last batch from the same parameters and permutation on
                  the card and on the CPU: the first minibatch's gradients
@@ -196,7 +210,23 @@ needs one CUDA device, and prints one JSON line per phase:
                  (1024 envs): every family's rate above 0, the last line
                  with bench.py's keys, and the kernel launched once a
                  timed step in the scenario families (their side
-                 detector) and never in the others
+                 detector) and never in the others, every timed call a
+                 graph replay
+
+36. graph_vs_eager  beside 4, 8, 13 and 26: from one reset, the eager loop
+                 (`_rollout_eager`) and the replayed `rollout`, the first
+                 two steps collecting no reward (the second under
+                 set_sync_debug_mode("error") in both), over 200 steps of
+                 the main path (both rates over steps 100-200) and 50 of
+                 scenario_lines, marl_tollgate and a PPO collection: obs,
+                 reward, terminated, truncated, the final state and last
+                 observation bit-equal, kernel launches equal
+37. cuda_tests   after 5: `python -m pytest tests/test_torch_cuda.py -m cuda
+                 --noconftest` in a child process (the kernel's cases and,
+                 with CUDA graphs, replay against eager bit for bit on PG
+                 with detectors, ScenarioEnv with lines, the tollgate, PPO's
+                 collection and restore between replays, and a policy that
+                 cannot be captured raising): every test passes, none skips
 
 The expert's products need float32 matmuls in full precision: the device
 phase asserts that TF32 is off. Then the kernels line (launches summed over
@@ -336,6 +366,16 @@ BENCH_ROWS = dict(pg=8192, safe=4096, marl=512 * 8, marl_40=256 * 40, scenario=4
                   scenario_replay=4096, scenario_recorded=1024)
 BENCH_DETECTORS = ("scenario", "scenario_replay", "scenario_recorded")
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+# The graph-against-eager phase: from one reset, the eager loop and the
+# replayed rollout (metadrive_ped_torch/core/graph.py) on the main path (STEPS
+# steps, both rates over steps TIMED_FROM-STEPS), scenario_lines,
+# marl_tollgate and one PPO collection (GRAPH_STEPS steps each); then the
+# card-only tests in a child process.
+GRAPH_STEPS = 50
+# replayed steps of the main path whose kernel runs the profiler counts
+PROFILED_STEPS = 10
+GRAPH_COLLECT = ("obs", "reward", "terminated", "truncated")
+CUDA_TESTS, CUDA_TESTS_TIMEOUT = ("tests/test_torch_cuda.py",), 600
 DEVICE = "cuda"
 STEPS = 200
 TIMED_FROM = 100
@@ -352,7 +392,27 @@ OPS_PER_PAIR = 21
 
 
 def emit(**fields):
+    """Print a phase's line. A line whose "graph" (at its top or in a
+    nested dict) is false fails the phase after it is printed, unless it
+    names the stepped class's ``graph_eager_reason`` (`ShardedEnv`)."""
     print(json.dumps(fields), flush=True)
+    for row in [fields] + [v for v in fields.values() if isinstance(v, dict)]:
+        if row.get("graph") is False and not row.get("graph_eager_reason"):
+            raise AssertionError(f"{fields.get('phase')}: a step did not replay a CUDA graph: "
+                                 f"{json.dumps(fields)[:400]}")
+
+
+def replays(env):
+    """The CUDA-graph replays of ``env`` so far (metadrive_ped_torch/core/graph.py)."""
+    graphs = getattr(env, "_graphs", None)
+    return graphs.replays if graphs is not None else 0
+
+
+def replayed(env, steps, before=0):
+    """Whether each of the ``steps`` steps that ``env`` took through `step`
+    and `rollout` since it had ``before`` replays was one replay: the
+    phase's "graph" field."""
+    return replays(env) - before == steps
 
 
 def time_ms(fn, iters, warmup=2):
@@ -510,6 +570,19 @@ def kernel_device_ms(fn, iters):
     return sum(e.self_device_time_total for e in records) / 1e3 / count if count else None
 
 
+def kernel_runs(fn):
+    """Runs of the detector-cloud kernel on the card during fn(), from
+    torch.profiler's CUDA kernel records (a graph replay's kernels
+    included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "detector_clouds_kernel" in e.key)
+
+
 def detector_bound(args):
     """Least time (ms) of one detector_clouds call on the card, and what
     sets it: each input read once and each output written once, against
@@ -568,30 +641,34 @@ def scenario_kernel_args(env):
 
 def drive(env, collect, mid=None, steps=STEPS):
     """Reset and ``steps`` full-throttle steps through `rollout`: the first
-    step under set_sync_debug_mode("error"), the rate over the second half.
-    Returns (the collected fields [steps, rows], the seconds of the timed
-    window, kernel launches, mid(env) after the warm steps)."""
+    captures the step as a CUDA graph (capture synchronises), the second, a
+    replay, runs under set_sync_debug_mode("error"); the rate over the
+    second half. Returns (the collected fields [steps, rows], the seconds of
+    the timed window, kernel launches, mid(env) after the warm steps,
+    whether the steps replayed)."""
     import torch
 
     from metadrive_ped_torch.ops import ray_segment as rs
     act = torch.tensor([0.0, 1.0], device=DEVICE).expand(env.num_envs, 2).contiguous()
     torch.cuda.reset_peak_memory_stats()
     rs.launches = 0
+    before = replays(env)
     env.reset(seed=0)
+    first, _ = env.rollout(1, actions=act, collect=collect)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        first, _ = env.rollout(1, actions=act, collect=collect)
+        checked, _ = env.rollout(1, actions=act, collect=collect)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    warm, _ = env.rollout(steps // 2 - 1, actions=act, collect=collect)
+    warm, _ = env.rollout(steps // 2 - 2, actions=act, collect=collect)
     at_mid = mid(env) if mid is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     timed, _ = env.rollout(steps - steps // 2, actions=act, collect=collect)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    outs = {k: torch.cat([first[k], warm[k], timed[k]]) for k in collect}
-    return outs, seconds, rs.launches, at_mid
+    outs = {k: torch.cat([first[k], checked[k], warm[k], timed[k]]) for k in collect}
+    return outs, seconds, rs.launches, at_mid, replayed(env, steps, before)
 
 
 def check_obs(env):
@@ -610,8 +687,8 @@ def drive_scenario(phase, env, card):
     returns the phase's line."""
     import torch
     E = env.num_envs
-    outs, seconds, launches, npc_long = drive(env, ("terminated", "truncated"),
-                                              mid=lambda e: e._state.npc_long.max())
+    outs, seconds, launches, npc_long, graph = drive(env, ("terminated", "truncated"),
+                                                     mid=lambda e: e._state.npc_long.max())
     finished = int((outs["terminated"] | outs["truncated"]).sum())
     obs_shape, obs_ok = check_obs(env)
     table, counts = env._line_table
@@ -620,9 +697,9 @@ def drive_scenario(phase, env, card):
                env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
                obs_shape=obs_shape, obs_ok=obs_ok, episodes_finished=finished,
                n_cont=counts[:, 0].tolist(), line_table_rows=int(table.shape[1]),
-               ray_segment_launches=launches, expected_launches=STEPS + 1, host_sync_checked_step=1,
+               ray_segment_launches=launches, expected_launches=STEPS + 1, host_sync_checked_step=2,
                npc_long_max=float(torch.maximum(npc_long, env._state.npc_long.max())),
-               peak_memory_bytes=torch.cuda.max_memory_allocated())
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), graph=graph)
     emit(**row)
     if not obs_ok:
         raise AssertionError(f"{phase}: observation out of shape or range")
@@ -643,7 +720,7 @@ def drive_safe(card):
     env = SafeMetaDriveEnv(SAFE, device=DEVICE)
     E = env.num_envs
     crashes = ("crash_vehicle", "crash_object", "crash_human")
-    outs, seconds, launches, _ = drive(env, ("terminated", "truncated") + crashes)
+    outs, seconds, launches, _, graph = drive(env, ("terminated", "truncated") + crashes)
     counts = {k: int(outs[k].sum()) for k in crashes}
     obs_shape, obs_ok = check_obs(env)
     row = dict(phase="safe", num_envs=E, scenarios=env.num_scenarios, steps=STEPS,
@@ -652,7 +729,8 @@ def drive_safe(card):
                obs_shape=obs_shape, obs_ok=obs_ok, cylinder_bodies=env._has_cylinders,
                episodes_finished=int((outs["terminated"] | outs["truncated"]).sum()),
                crash_events=counts, ray_segment_launches=launches, expected_launches=0,
-               host_sync_checked_step=1, peak_memory_bytes=torch.cuda.max_memory_allocated())
+               host_sync_checked_step=2, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               graph=graph)
     emit(**row)
     if not obs_ok:
         raise AssertionError("safe: observation out of shape or range")
@@ -669,8 +747,8 @@ def drive_marl(phase, env, card, expected_launches, steps=STEPS):
     no env resets before the horizon of 1000) over ``steps`` steps."""
     import torch
     rows, envs = env.num_envs, env.num_marl_envs
-    outs, seconds, launches, _ = drive(env, ("terminated", "truncated", "step_count"),
-                                       steps=steps)
+    outs, seconds, launches, _, graph = drive(env, ("terminated", "truncated", "step_count"),
+                                              steps=steps)
     respawns = int((outs["step_count"] == 0).sum())
     obs_shape, obs_ok = check_obs(env)
     timed = steps - steps // 2
@@ -681,7 +759,8 @@ def drive_marl(phase, env, card, expected_launches, steps=STEPS):
                obs_shape=obs_shape, obs_ok=obs_ok,
                agent_terminations=int(outs["terminated"].sum()), respawns=respawns,
                ray_segment_launches=launches, expected_launches=expected_launches,
-               host_sync_checked_step=1, peak_memory_bytes=torch.cuda.max_memory_allocated())
+               host_sync_checked_step=2, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               graph=graph)
     emit(**row)
     if not obs_ok:
         raise AssertionError(f"{phase}: observation out of shape or range")
@@ -694,7 +773,8 @@ def drive_marl(phase, env, card, expected_launches, steps=STEPS):
 def card_vs_cpu(make_env, cfg, steps=20, state_ints=(), action=(0.0, 1.0)):
     """The same env config on the card and on the CPU, stepped with one
     ``action`` in every row (full throttle by default): (obs max abs
-    difference, reward max abs difference, bool flags that differ).
+    difference, reward max abs difference, bool flags that differ, whether
+    the card's steps replayed a graph).
     ``state_ints`` names integer state fields ("dead_timer", "ego.slot")
     whose differing entries count as flags."""
     import torch
@@ -715,7 +795,90 @@ def card_vs_cpu(make_env, cfg, steps=20, state_ints=(), action=(0.0, 1.0)):
                                           if torch.is_tensor(ic[k]) and ic[k].dtype == torch.bool]
         flags += [(attrgetter(n)(gpu._state), attrgetter(n)(cpu._state)) for n in state_ints]
         flag_mismatches += sum(int((a.cpu() != b).sum()) for a, b in flags)
-    return obs_err, rew_err, flag_mismatches
+    return obs_err, rew_err, flag_mismatches, replayed(gpu, steps)
+
+
+def graph_vs_eager(name, env, steps, card, timed_from=None, policy=None):
+    """``steps`` steps of ``env`` from reset(seed=0) through the eager loop
+    (`_rollout_eager`), then from the same reset through the replayed
+    `rollout`, at full throttle or with ``policy``: the collected fields,
+    the final state and last observation must be bit-equal and the kernel
+    launches equal. The first two steps collect no reward (`rollout` reads
+    its mean on the host): the second runs under set_sync_debug_mode
+    ("error") in both runs, a replay in the second (the first captures).
+    With ``timed_from``, the rate of each over steps timed_from-steps.
+    Returns the phase's line."""
+    import torch
+
+    from metadrive_ped_torch.core.graph import leaves
+    from metadrive_ped_torch.core.structs import map_tensors
+    from metadrive_ped_torch.ops import ray_segment as rs
+    act = torch.tensor([0.0, 1.0], device=DEVICE).expand(env.num_envs, 2).contiguous()
+    kw = dict(policy_fn=policy) if policy is not None else dict(actions=act)
+    unchecked = tuple(k for k in GRAPH_COLLECT if k != "reward")
+    timed_from = timed_from or steps
+    runs = {}
+    for mode, roll in (("eager", env._rollout_eager), ("graph", env.rollout)):
+        rs.launches = 0
+        before = replays(env)
+        env.reset(seed=0)
+        first = []
+        for check in (False, True):
+            torch.cuda.set_sync_debug_mode("error" if check else 0)
+            try:
+                first.append(roll(1, collect=unchecked, **kw)[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        parts = [roll(timed_from - 2, collect=GRAPH_COLLECT, **kw)[0]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if steps > timed_from:
+            parts.append(roll(steps - timed_from, collect=GRAPH_COLLECT, **kw)[0])
+        torch.cuda.synchronize()
+        outs = {k: torch.cat([p[k] for p in (first if k in unchecked else []) + parts])
+                for k in GRAPH_COLLECT}
+        runs[mode] = dict(outs=outs,
+                          final=leaves(map_tensors(torch.clone, (env._state, env._last_obs))),
+                          launches=rs.launches, seconds=time.perf_counter() - t0,
+                          replays=replays(env) - before)
+    eager, graph = runs["eager"], runs["graph"]
+    equal = {k: bool(torch.equal(eager["outs"][k], graph["outs"][k])) for k in GRAPH_COLLECT}
+    equal["state_and_last_obs"] = len(eager["final"]) == len(graph["final"]) and all(
+        bool(torch.equal(a, b)) for a, b in zip(eager["final"], graph["final"]))
+    row = dict(phase="graph_vs_eager", run=name, rows=env.num_envs, steps=steps,
+               reward_steps=f"3-{steps}", bit_equal=equal,
+               kernel_launches=dict(eager=eager["launches"], graph=graph["launches"]),
+               captures=env._graphs.captures,
+               replays=dict(eager=eager["replays"], graph=graph["replays"]),
+               host_sync_checked_step=2,
+               graph=eager["replays"] == 0 and graph["replays"] == steps, card=card)
+    if steps > timed_from:
+        rate = lambda r: env.num_envs * (steps - timed_from) / r["seconds"]  # noqa: E731
+        row.update(rate_window=f"steps {timed_from}-{steps}", eager_rows_per_s=rate(eager),
+                   graph_rows_per_s=rate(graph), graph_over_eager=rate(graph) / rate(eager))
+    emit(**row)
+    if not all(equal.values()):
+        raise AssertionError(f"graph_vs_eager {name}: replay differs from the eager loop: {equal}")
+    if eager["launches"] != graph["launches"]:
+        raise AssertionError(f"graph_vs_eager {name}: kernel launches {row['kernel_launches']}")
+    return row
+
+
+def run_cuda_tests(card):
+    """The card-only tests (marker `cuda`) in a child process, without
+    tests/conftest.py (it imports jax, which the port does not need): every
+    one must pass, none skip."""
+    import torch
+    torch.cuda.empty_cache()  # leave the card's memory to the child
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pytest", *CUDA_TESTS, "-q", "-m", "cuda",
+                          "--noconftest", "-p", "no:cacheprovider"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=CUDA_TESTS_TIMEOUT)
+    summary = (out.stdout.strip().splitlines() or [""])[-1]
+    emit(phase="cuda_tests", files=list(CUDA_TESTS), returncode=out.returncode, summary=summary,
+         seconds=time.perf_counter() - t0, card=card)
+    if out.returncode != 0 or "passed" not in summary or "skipped" in summary:
+        raise AssertionError(f"cuda_tests: {summary}\n{out.stdout[-4000:]}\n{out.stderr[-2000:]}")
 
 
 def kernel_profile(fn, calls):
@@ -735,7 +898,9 @@ def kernel_profile(fn, calls):
 
 
 def step_launches(env, act, steps=2):
-    """(kernel launches, device busy ms) per `rollout` step."""
+    """(kernel launches, device busy ms) per `rollout` step, after one step
+    that captures the step for this collect outside the profile."""
+    env.rollout(1, actions=act, collect=())
     return kernel_profile(lambda: env.rollout(steps, actions=act, collect=()), steps)
 
 
@@ -749,9 +914,10 @@ def drive_mixed(card):
     E = env.num_envs
     env.reset(seed=0)
     row = kernel_case("mixed_traffic", detector_args(env), iters=20)
-    outs, seconds, launches, _ = drive(env, ("terminated", "truncated"))
+    outs, seconds, launches, _, graph = drive(env, ("terminated", "truncated"))
     st = env._state
     expert = env.scene.npc_expert[st.sidx.long()]
+    expert_active = int((expert & st.npc.active & st.npc.released).sum())
     act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
     per_step, busy_ms = step_launches(env, act)
     obs_shape, obs_ok = check_obs(env)
@@ -762,10 +928,11 @@ def drive_mixed(card):
                  obs_shape=obs_shape, obs_ok=obs_ok,
                  episodes_finished=int((outs["terminated"] | outs["truncated"]).sum()),
                  expert_slots=int(expert.sum()),
-                 expert_slots_active=int((expert & st.npc.active & st.npc.released).sum()),
+                 expert_slots_active=expert_active,
                  launches_per_step=per_step, device_busy_ms_per_step=busy_ms,
                  ray_segment_launches=launches, expected_launches=STEPS + 1,
-                 host_sync_checked_step=1, peak_memory_bytes=torch.cuda.max_memory_allocated())
+                 host_sync_checked_step=2, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 graph=graph)
     emit(**phase)
     if not obs_ok:
         raise AssertionError("mixed_traffic: observation out of shape or range")
@@ -778,8 +945,9 @@ def drive_mixed(card):
 
 
 def drive_ai_protect(card):
-    """The AI protector with lidar noise through `step`, the first step
-    after reset under set_sync_debug_mode("error")."""
+    """The AI protector with lidar noise through `step`: the first step
+    after reset captures it, the second, a replay, runs under
+    set_sync_debug_mode("error")."""
     import torch
 
     from metadrive_ped_torch import MetaDriveEnv
@@ -796,7 +964,7 @@ def drive_ai_protect(card):
         if i == TIMED_FROM:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        if i == 0:
+        if i == 1:
             torch.cuda.set_sync_debug_mode("error")
         try:
             _, _, term, trunc, info = env.step(act)
@@ -814,8 +982,8 @@ def drive_ai_protect(card):
                obs_shape=obs_shape, obs_ok=obs_ok, takeovers=counts["takeover"],
                takeover_starts=counts["takeover_start"], takeover_ends=counts["takeover_end"],
                episodes_finished=counts["terminated"], ray_segment_launches=rs.launches,
-               expected_launches=0, host_sync_checked_step=1,
-               peak_memory_bytes=torch.cuda.max_memory_allocated())
+               expected_launches=0, host_sync_checked_step=2,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), graph=replayed(env, STEPS))
     emit(**row)
     if not obs_ok:
         raise AssertionError("ai_protect_noise: observation out of shape or range")
@@ -890,11 +1058,13 @@ def drive_ppo(card):
     module = ppo.PolicyValue(env.observation_dim, key=rng, device=DEVICE)
     optimizer = torch.optim.Adam(module.parameters(), lr=args.lr)
     generator = torch.Generator(device=DEVICE).manual_seed(0)
-    # one step of the sampling policy must not synchronise with the host
+    # a replayed step of the sampling policy must not synchronise with the
+    # host (the first call captures it, and capture synchronises)
+    policy = ppo.sample_policy(module, prng.split(rng, 3)[2])
+    env.rollout(1, policy_fn=policy, collect=("obs",))
     torch.cuda.set_sync_debug_mode("error")
     try:
-        env.rollout(1, policy_fn=ppo.sample_policy(module, prng.split(rng, 3)[2]),
-                    collect=("obs",))
+        env.rollout(1, policy_fn=policy, collect=("obs",))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     start = [p.detach().clone() for p in module.parameters()]
@@ -903,13 +1073,17 @@ def drive_ppo(card):
         keys = prng.split(rng, 3)
         rng = keys[0]
         before = [p.detach().clone() for p in module.parameters()]
+        steps_before = replays(env)
         row, batch = ppo.train_iteration(env, module, optimizer, keys[1], args, generator)
         row["param_max_abs_change"] = max(float((p.detach() - q).abs().max())
                                           for p, q in zip(module.parameters(), before))
-        emit(phase="ppo_train", iteration=it, num_envs=PPO_ENVS, card=card, **row)
+        emit(phase="ppo_train", iteration=it, num_envs=PPO_ENVS, card=card,
+             graph=replayed(env, PPO_ROLLOUT, steps_before), **row)
         stats.append(row)
-    # where the time goes: a collection step and an update minibatch
+    # where the time goes: a (replayed) collection step and an update
+    # minibatch; one step first captures the new policy's graph
     policy = ppo.sample_policy(module, rng)
+    env.rollout(1, policy_fn=policy, collect=())
     t0 = time.perf_counter()
     collect_launches, collect_busy = kernel_profile(
         lambda: env.rollout(2, policy_fn=policy, collect=()), 2)
@@ -921,13 +1095,18 @@ def drive_ppo(card):
     update_wall = (time.perf_counter() - t0) * 1e3
     obs_b = batch[0]
     moved = max(float((p.detach() - q).abs().max()) for p, q in zip(module.parameters(), start))
+    graph_vs_eager("ppo_collection", env, GRAPH_STEPS, card, policy=policy)
     summary = dict(phase="ppo_train", summary=True, num_envs=PPO_ENVS, scenarios=env.num_scenarios,
                    env_build_s=build_s, rollout=PPO_ROLLOUT, epochs=PPO_EPOCHS,
                    minibatches=PPO_MINIBATCHES, iterations=PPO_ITERS,
                    batch_rows=int(obs_b.shape[0]), obs_dim=int(obs_b.shape[1]),
                    rollout_obs_bytes=obs_b.numel() * obs_b.element_size(),
                    minibatch_rows=int(obs_b.shape[0]) // PPO_MINIBATCHES,
-                   param_max_abs_change_total=moved, host_sync_checked_step=1,
+                   param_max_abs_change_total=moved, host_sync_checked_step=2,
+                   # the checked steps, the collections, the profiled
+                   # steps and graph_vs_eager's replayed run
+                   graph=replayed(env, 2 + PPO_ITERS * PPO_ROLLOUT + 3 + GRAPH_STEPS),
+                   captures=env._graphs.captures,
                    collect_step=dict(launches=collect_launches, device_busy_ms=collect_busy,
                                      profiled_wall_ms=collect_wall),
                    update_minibatch=dict(launches=update_launches, device_busy_ms=update_busy,
@@ -1054,33 +1233,47 @@ def drive_mix(card, synthetic):
                             iters=20))
     torch.cuda.reset_peak_memory_stats()
     rs.launches = 0
-    suites, seconds, finished = [], 0.0, torch.zeros((), dtype=torch.int64, device=DEVICE)
+    suites, seconds, timed = [], 0.0, 0
+    finished = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    collect = ("terminated", "truncated")
     for i in range(MIX_RESETS):
         env.reset(seed=i)
-        suites.append("scenario" if env.is_current_real_data else "pg")
-        if i == 0:
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                env.rollout(1, actions=act, collect=())
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+        suite = "scenario" if env.is_current_real_data else "pg"
+        steps = MIX_STEPS
+        if suite not in suites:
+            # the suite's first reset: one step captures its graph, the
+            # next, a replay, runs under the sync check; both untimed
+            for check in (False, True):
+                torch.cuda.set_sync_debug_mode("error" if check else 0)
+                try:
+                    outs, _ = env.rollout(1, actions=act, collect=collect)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                finished += (outs["terminated"] | outs["truncated"]).sum()
+            steps -= 2
+        suites.append(suite)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs, _ = env.rollout(MIX_STEPS - (i == 0), actions=act, collect=("terminated", "truncated"))
+        outs, _ = env.rollout(steps, actions=act, collect=collect)
         torch.cuda.synchronize()
         seconds += time.perf_counter() - t0
+        timed += steps
         finished += (outs["terminated"] | outs["truncated"]).sum()
     launches = rs.launches
     obs_shape, obs_ok = check_obs(env._active)
     expected = MIX_RESETS * (MIX_STEPS + 1)
     row = dict(phase="mix_waymo_pg", num_envs=E, resets=MIX_RESETS, steps_per_reset=MIX_STEPS,
-               suites=suites, seconds=seconds,
-               env_steps_per_s=E * (MIX_RESETS * MIX_STEPS - 1) / seconds, card=card,
+               suites=suites, seconds=seconds, timed_steps=timed,
+               env_steps_per_s=E * timed / seconds, card=card,
                obs_shape=obs_shape, obs_ok=obs_ok, episodes_finished=int(finished),
                pg_speed_init="randint(0, 10) from RandomState(0)",
                ray_segment_launches=launches, expected_launches=expected,
-               kernel_max_abs_err=max(r["max_abs_err"] for r in rows), host_sync_checked_step=1,
-               peak_memory_bytes=torch.cuda.max_memory_allocated())
+               kernel_max_abs_err=max(r["max_abs_err"] for r in rows),
+               host_sync_checked_step="2 of each suite's first reset",
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               graph=all(replayed(child, MIX_STEPS * suites.count(suite))
+                         for child, suite in ((env.scenario_env, "scenario"),
+                                              (env.pg_env, "pg"))))
     emit(**row)
     if set(suites) != {"scenario", "pg"}:
         raise AssertionError(f"mix_waymo_pg: both suites must run, got {suites}")
@@ -1108,11 +1301,11 @@ def drive_opendrive(card, xodr_path):
     krow = kernel_case("opendrive", detector_args(env), iters=20)
     if krow["hits"][0] == 0 or krow["max_abs_err"] != 0.0:
         raise AssertionError("opendrive: the side detector saw no line, or the kernel differs")
-    outs, seconds, launches, _ = drive(env, ("terminated", "truncated"))
+    outs, seconds, launches, _, graph = drive(env, ("terminated", "truncated"))
     obs_shape, obs_ok = check_obs(env)
     table, counts = env._line_table
     del env
-    obs_err, rew_err, flag_mismatches = card_vs_cpu(MetaDriveEnv, dict(cfg, num_envs=32))
+    obs_err, rew_err, flag_mismatches, cpu_graph = card_vs_cpu(MetaDriveEnv, dict(cfg, num_envs=32))
     row = dict(phase="opendrive", num_envs=E, steps=STEPS,
                rate_window=f"steps {TIMED_FROM}-{STEPS}", seconds=seconds,
                env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
@@ -1120,11 +1313,11 @@ def drive_opendrive(card, xodr_path):
                episodes_finished=int((outs["terminated"] | outs["truncated"]).sum()),
                n_cont=counts[:, 0].tolist(), line_table_rows=int(table.shape[1]),
                ray_segment_launches=launches, expected_launches=STEPS + 1,
-               kernel_max_abs_err=krow["max_abs_err"], host_sync_checked_step=1,
+               kernel_max_abs_err=krow["max_abs_err"], host_sync_checked_step=2,
                card_vs_cpu=dict(num_envs=32, steps=20, obs_max_abs_err=obs_err,
                                 reward_max_abs_err=rew_err, flag_mismatches=flag_mismatches,
-                                tol=CPU_TOL),
-               peak_memory_bytes=torch.cuda.max_memory_allocated())
+                                tol=CPU_TOL, graph=cpu_graph),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), graph=graph)
     emit(**row)
     if not obs_ok:
         raise AssertionError("opendrive: observation out of shape or range")
@@ -1180,6 +1373,7 @@ def drive_snapshot(card):
                  healthy_mean_speed_before=float(speed0[~broken].mean()),
                  healthy_mean_speed_after=float(speed1[~broken].mean()))
     launches = rs.launches
+    graph = replayed(env, SNAP_AT + 2 * SNAP_STEPS + BREAK_STEPS)
     del env
     # record and replay at RECORD_ENVS envs
     rs.launches = 0
@@ -1203,7 +1397,8 @@ def drive_snapshot(card):
                done_rows_in_window=done_rows, round_trip_bit_equal=round_trip,
                record_envs=RECORD_ENVS, record_steps=RECORD_STEPS, replay_bit_equal=replay,
                break_down=dict(fault, steps=BREAK_STEPS), dump_reload_pack_equal=pack_equal,
-               ray_segment_launches=launches, card=card)
+               ray_segment_launches=launches, card=card,
+               graph=graph and replayed(small, RECORD_STEPS + 1))
     emit(**row)
     if not all(round_trip.values()):
         raise AssertionError(f"snapshot_replay: the restored run differs: {round_trip}")
@@ -1302,7 +1497,8 @@ def drive_image_obs(card):
                step_launches=step_launches_, step_device_ms=step_ms,
                image_ok=image_ok, state_ok=state_ok, episodes_finished=finished,
                ray_segment_launches=launches, expected_launches=IMAGE_STEPS + 1,
-               host_sync_checked_step=2, peak_memory_bytes=peak)
+               host_sync_checked_step=2, peak_memory_bytes=peak,
+               graph=replayed(env, IMAGE_STEPS + 2))
     emit(**row)
     if not (image_ok and state_ok):
         raise AssertionError("image_obs: image or state out of shape or range")
@@ -1336,7 +1532,7 @@ def drive_camera_modalities(card, pack_path):
                    newest_frame_std=float(img[..., -1].std()), seconds=seconds,
                    env_steps_per_s=E * (MODALITY_STEPS - 1) / seconds, card=card,
                    ray_segment_launches=n, expected_launches=MODALITY_STEPS + 1,
-                   peak_memory_bytes=peak)
+                   peak_memory_bytes=peak, graph=replayed(env, MODALITY_STEPS))
         emit(**row)
         if not ok or row["newest_frame_std"] == 0:
             raise AssertionError(f"camera_modalities: {modality} out of shape or range, or blank")
@@ -1369,7 +1565,8 @@ def drive_top_down(card):
                step_launches=step_launches_, step_device_ms=step_ms,
                bev_launches_per_call=bev_launches, bev_device_ms_per_call=bev_ms,
                episodes_finished=finished, ray_segment_launches=launches, expected_launches=0,
-               host_sync_checked_step=2, peak_memory_bytes=peak)
+               host_sync_checked_step=2, peak_memory_bytes=peak,
+               graph=replayed(env, IMAGE_STEPS + 2))
     emit(**row)
     if not ok or row["road_share"] == 0:
         raise AssertionError("top_down: observation out of shape or range, or no road")
@@ -1467,7 +1664,8 @@ def render_card_vs_cpu(card):
                checked_every=RENDER_CHECK_EVERY, camera=cfg["sensors"]["main_camera"],
                tol=CAMERA_TOL, max_abs_err=worst, pixels_beyond_tol_checked=counted,
                render_equal=render_equal, stacked_ring_equal=ring_equal, ring_dones=dones,
-               card=card)
+               card=card,
+               graph=replayed(gpu, RENDER_CPU_STEPS) and replayed(tdg, RENDER_CPU_STEPS))
     emit(**row)
     if not (all(render_equal.values()) and ring_equal and dones > 0):
         raise AssertionError(f"render_card_vs_cpu: render or ring differ: {row}")
@@ -1484,9 +1682,10 @@ def sharded_meshes():
 
 
 def drive_checked_last(env, collect, steps):
-    """As `drive`, but the step checked for host syncs is one more step
-    after the run: these runs collect the reward, whose mean `rollout`
-    reads on the host. Returns (the collected fields [steps, rows], the
+    """As `drive`, but the step checked for host syncs is the second of two
+    more steps after the run (the first captures the step that collects
+    nothing): these runs collect the reward, whose mean `rollout` reads on
+    the host. Returns (the collected fields [steps, rows], the
     seconds of the second half, kernel launches in all and by device)."""
     import torch
 
@@ -1503,6 +1702,9 @@ def drive_checked_last(env, collect, steps):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, by_device = rs.launches, dict(rs.launches_by_device)
+    # one more step captures the collect=() step (capture synchronises);
+    # the step after it, a replay, runs under the sync check
+    env.rollout(1, actions=act, collect=())
     torch.cuda.set_sync_debug_mode("error")
     try:
         env.rollout(1, actions=act, collect=())
@@ -1526,13 +1728,17 @@ def drive_sharded(phase, make_env, cfg, card, steps, kernel_rows=None):
     timed = steps - steps // 2
 
     def run(env):
+        before = replays(env)
         outs, seconds, launches, by_device = drive_checked_last(env, collect, steps)
         act = torch.tensor([0.0, 1.0], device=DEVICE).expand(env.num_envs, 2).contiguous()
         per_step, device_ms = step_launches(env, act, steps=1)
         rate = dict(env_steps_per_s=cfg["num_envs"] * timed / seconds,
                     row_steps_per_s=env.num_envs * timed / seconds,
                     launches_per_step=per_step, device_ms_per_step=device_ms,
-                    kernel_launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated())
+                    kernel_launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    # drive_checked_last's steps + 2, step_launches' 2
+                    graph=replayed(env, steps + 4, before),
+                    graph_eager_reason=getattr(env, "graph_eager_reason", None))
         return outs, rate, by_device
 
     t_phase = time.perf_counter()
@@ -1566,7 +1772,7 @@ def drive_sharded(phase, make_env, cfg, card, steps, kernel_rows=None):
              episodes_finished=int((ref["terminated"] | ref["truncated"]).sum()),
              kernel_launches_by_device={str(k): v for k, v in by_device.items()},
              expected_launches_by_device={str(k): v for k, v in expected.items()},
-             host_sync_checked_step=steps + 1, phase_seconds=time.perf_counter() - t_phase,
+             host_sync_checked_step=steps + 2, phase_seconds=time.perf_counter() - t_phase,
              card=card)
         if not (obs_err <= SHARD_OBS_TOL and rew_err <= SHARD_REWARD_TOL and flags == 0):
             failures.append(f"{mesh}: sharded outputs differ from the unsharded ones")
@@ -1599,7 +1805,8 @@ def dist_worker(rank, init_method):
             rank=rank, world=world, seeds=env._seeds.tolist(),
             seen=sorted(set(outs["env_seed"].flatten().tolist())), mean_reward=mine,
             gathered=[float(g) for g in gathered], kernel_launches=launches,
-            env_steps_per_s=DIST_ENVS * (DIST_STEPS - DIST_STEPS // 2) / seconds)), flush=True)
+            env_steps_per_s=DIST_ENVS * (DIST_STEPS - DIST_STEPS // 2) / seconds,
+            graph=replayed(env, DIST_STEPS + 2))), flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -1641,7 +1848,8 @@ def drive_distributed(card):
           and r0["kernel_launches"] == r1["kernel_launches"] == DIST_STEPS + 1)
     emit(phase="distributed", ranks=2, backend="gloo", device="cuda:0", num_envs_per_rank=DIST_ENVS,
          steps=DIST_STEPS, results=[results.get(0), results.get(1)],
-         phase_seconds=time.perf_counter() - t_phase, card=card)
+         phase_seconds=time.perf_counter() - t_phase, card=card,
+         graph=all(r is not None and r["graph"] for r in (r0, r1)))
     if not ok:
         raise AssertionError("distributed: strides, gathered rewards or launches are wrong")
     return r0["kernel_launches"] + r1["kernel_launches"]
@@ -1709,7 +1917,7 @@ def run_bench(args, card):
     families = [json.loads(line) for line in lines if line.startswith('{"family"')]
     last = json.loads(lines[-1])
     emit(phase="bench_torch", args=list(args), card_line=lines[0], families=families, last=last,
-         seconds=seconds, card=card)
+         seconds=seconds, card=card, graph=all(row["graph"] for row in families))
     failures = [] if lines[0] == card else [f"card line {lines[0]!r}, expected {card!r}"]
     for row in families:
         fam = row["family"]
@@ -1722,6 +1930,8 @@ def run_bench(args, card):
                             f"{BENCH_ROWS[fam]} x {BENCH_STEPS}")
         if not row["rate"] > 0:
             failures.append(f"{fam}: rate {row['rate']}")
+        if not row["graph"]:
+            failures.append(f"{fam}: the timed call did not replay a graph")
     keys = BENCH_KEYS | ({"configs"} if len(families) > 1 else set())
     if set(last) != keys:
         failures.append(f"last line keys {sorted(last)}, expected {sorted(keys)}")
@@ -1792,13 +2002,17 @@ def main():
     rs.launches = 0
     obs, _ = env.reset(seed=0)
     finished = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    for i in range(TIMED_FROM):
+    for i in range(TIMED_FROM - 1):
         if i == 1:
-            # one step must not synchronise with the host
+            # a replayed step must not synchronise with the host (step 0
+            # captured it, and capture synchronises)
             torch.cuda.set_sync_debug_mode("error")
         obs, reward, term, trunc, info = env.step(act)
         torch.cuda.set_sync_debug_mode(0)
         finished += (term | trunc).sum()
+    # the last untimed step captures the rollout's graph
+    outs, _ = env.rollout(1, actions=act, collect=("terminated", "truncated"))
+    finished += (outs["terminated"] | outs["truncated"]).sum()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs, _ = env.rollout(STEPS - TIMED_FROM, actions=act, collect=("terminated", "truncated"))
@@ -1808,25 +2022,41 @@ def main():
     finished += (outs["terminated"] | outs["truncated"]).sum()
     obs = env._last_obs
     obs_ok = bool(torch.isfinite(obs).all()) and bool(((obs >= 0) & (obs <= 1)).all())
+    # a replay's launches are counted from its capture's tally: over
+    # PROFILED_STEPS more replays, the count against the kernel's runs that
+    # the profiler records
+    rs.launches = 0
+    profiled = kernel_runs(lambda: env.rollout(PROFILED_STEPS, actions=act,
+                                               collect=("terminated", "truncated")))
+    window = dict(steps=PROFILED_STEPS, launches_counted=rs.launches, kernel_runs_profiled=profiled)
     emit(phase="env", num_envs=E, steps=STEPS, rate_window=f"steps {TIMED_FROM}-{STEPS}",
          seconds=seconds, env_steps_per_s=E * (STEPS - TIMED_FROM) / seconds, card=card,
          obs_shape=list(obs.shape), obs_ok=obs_ok, episodes_finished=int(finished),
          ray_segment_launches=launches, expected_launches=STEPS + 1,
-         host_sync_checked_step=2, peak_memory_bytes=torch.cuda.max_memory_allocated())
+         profiled_replays=window,
+         host_sync_checked_step=2, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         graph=replayed(env, STEPS + PROFILED_STEPS))
     if tuple(obs.shape) != (E, env.observation_dim) or not obs_ok:
         raise AssertionError("observation out of shape or range")
     if launches != STEPS + 1:
         raise AssertionError(f"ray-segment kernel launched {launches} times, expected {STEPS + 1}")
+    if not window["launches_counted"] == window["kernel_runs_profiled"] == PROFILED_STEPS:
+        raise AssertionError(f"replayed steps: counted launches against the profiler's kernel "
+                             f"runs {window}")
     if int(finished) == 0:
         raise AssertionError("no episode finished in 200 steps")
-    del env, outs
+    del outs
+    graph_vs_eager("pg_detectors", env, STEPS, card, timed_from=TIMED_FROM)
+    del env
 
     # ---- the card against the CPU -----------------------------------------
-    obs_err, rew_err, flag_mismatches = card_vs_cpu(MetaDriveEnv, dict(MAIN_PATH, num_envs=32))
+    obs_err, rew_err, flag_mismatches, graph = card_vs_cpu(MetaDriveEnv,
+                                                           dict(MAIN_PATH, num_envs=32))
     emit(phase="card_vs_cpu", num_envs=32, steps=20, obs_max_abs_err=obs_err,
-         reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
+         reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches, graph=graph)
     if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
         raise AssertionError("the card and the CPU disagree")
+    run_cuda_tests(card)
 
     # ---- the scenario path ------------------------------------------------
     from metadrive_ped_torch import ScenarioEnv
@@ -1872,12 +2102,13 @@ def main():
     rows.append(lines_row)
     phase_launches["scenario_lines"] = drive_scenario(
         "scenario_lines", env, card)["ray_segment_launches"]
+    graph_vs_eager("scenario_lines", env, GRAPH_STEPS, card)
     del env
 
-    obs_err, rew_err, flag_mismatches = card_vs_cpu(
+    obs_err, rew_err, flag_mismatches, graph = card_vs_cpu(
         ScenarioEnv, dict(SCENARIO_LINES, num_envs=32, scenario_data=exported))
     emit(phase="scenario_card_vs_cpu", num_envs=32, steps=20, obs_max_abs_err=obs_err,
-         reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
+         reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches, graph=graph)
     if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
         raise AssertionError("scenario: the card and the CPU disagree")
 
@@ -1900,14 +2131,16 @@ def main():
     rows.append(toll_row)
     phase_launches["marl_tollgate"] = drive_marl("marl_tollgate", env, card,
                                                  expected_launches=STEPS + 1)["ray_segment_launches"]
+    graph_vs_eager("marl_tollgate", env, GRAPH_STEPS, card)
     del env
 
     for name, cfg in MARL_CPU:
-        obs_err, rew_err, flag_mismatches = card_vs_cpu(
+        obs_err, rew_err, flag_mismatches, graph = card_vs_cpu(
             getattr(port, name), cfg, state_ints=("dead_timer", "ego.slot"))
         emit(phase="marl_card_vs_cpu", env=name, num_envs=cfg["num_envs"],
              num_agents=cfg["num_agents"], steps=20, obs_max_abs_err=obs_err,
-             reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
+             reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches,
+             graph=graph)
         if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
             raise AssertionError(f"{name}: the card and the CPU disagree")
 
@@ -1917,22 +2150,24 @@ def main():
     phase_launches["mixed_traffic"] = mixed_phase["ray_segment_launches"]
     phase_launches["ai_protect_noise"] = drive_ai_protect(card)["ray_segment_launches"]
     for name, cfg, action, state_ints in SLICE4_CPU:
-        obs_err, rew_err, flag_mismatches = card_vs_cpu(
+        obs_err, rew_err, flag_mismatches, graph = card_vs_cpu(
             getattr(port, name), cfg, state_ints=state_ints, action=action)
         emit(phase="slice4_card_vs_cpu", env=name, num_envs=cfg["num_envs"],
              num_agents=cfg.get("num_agents"), options={k: cfg[k] for k in (
                  "rl_agent_ratio", "agent_policy", "use_AI_protector") if k in cfg},
              steps=20, obs_max_abs_err=obs_err, reward_max_abs_err=rew_err, tol=CPU_TOL,
-             flag_mismatches=flag_mismatches)
+             flag_mismatches=flag_mismatches, graph=graph)
         if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
             raise AssertionError(f"{name} {cfg}: the card and the CPU disagree")
 
     # ---- the trainer's surface -------------------------------------------
     for phase, name in UNTRIED_SCENES:
         cls = getattr(port, name)
-        obs_err, rew_err, flag_mismatches = card_vs_cpu(cls, dict(num_envs=4), state_ints=MULTI)
+        obs_err, rew_err, flag_mismatches, graph = card_vs_cpu(cls, dict(num_envs=4),
+                                                               state_ints=MULTI)
         emit(phase="marl_card_vs_cpu", env=name, num_envs=4, steps=20, obs_max_abs_err=obs_err,
-             reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches)
+             reward_max_abs_err=rew_err, tol=CPU_TOL, flag_mismatches=flag_mismatches,
+             graph=graph)
         if not (obs_err <= CPU_TOL and rew_err <= CPU_TOL and flag_mismatches == 0):
             raise AssertionError(f"{name}: the card and the CPU disagree")
         env = cls(dict(num_envs=UNTRIED_ENVS), device=DEVICE)

@@ -29,7 +29,7 @@ from metadrive_ped_torch.constants import (
     SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
     VEHICLE_CLASS_ORDER, VEHICLE_CLASSES,
 )
-from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core import graph, prng
 from metadrive_ped_torch.core.device import resolve_device
 from metadrive_ped_torch.core.logger import get_logger
 from metadrive_ped_torch.core.structs import (
@@ -99,6 +99,7 @@ class VectorEnvLoop:
     # is handed before it observes (`parallel.ShardedEnv`)
     _row_offset = 0
     _batch_step_sum = None
+    _graphs = None  # core.graph.EnvGraphs, made at the first step on a card
 
     def _as_tensor(self, a, dtype):
         if torch.is_tensor(a):
@@ -111,13 +112,37 @@ class VectorEnvLoop:
         self._last_obs = obs = self._observe(self._state, *obs_args)
         return self._reset_outputs(self._frame_obs(obs), info)
 
+    def _graphs_or_none(self):
+        """The env's captured steps (`core.graph.EnvGraphs`), or None on the
+        CPU, which has no graphs and runs its steps eagerly."""
+        capture = graph.capture_backend(self.device)
+        if capture is None:
+            return None
+        if self._graphs is None:
+            self._graphs = graph.EnvGraphs(capture, self.device)
+        return self._graphs
+
     def step(self, actions):
         """One step of every env: the host's action conversion, the rows'
-        step on the device, the host's bookkeeping."""
+        step on the device, the host's bookkeeping. On a CUDA device the
+        device work is one replay of the captured `_step_impl`
+        (core/graph.py); on the CPU it runs op by op."""
+        return self._step(actions, self._graphs_or_none())
+
+    def _step_eager(self, actions):
+        """`step` with the device work dispatched op by op, on any device.
+        Nothing chooses it: it is called by name, to profile the eager
+        step."""
+        return self._step(actions, None)
+
+    def _step(self, actions, graphs):
         actions = self._step_actions(actions)
-        self._state, obs, reward, terminated, truncated, info = self._step_impl(
-            self._state, actions, self._prev_obs())
-        self._last_obs = obs
+        if graphs is None:
+            self._state, obs, reward, terminated, truncated, info = self._step_impl(
+                self._state, actions, self._prev_obs())
+            self._last_obs = obs
+        else:
+            obs, reward, terminated, truncated, info = graphs.step(self, actions)
         obs = self._frame_obs(obs, terminated, truncated)
         return self._step_outputs(obs, reward, terminated, truncated, info)
 
@@ -161,6 +186,7 @@ class VectorEnvLoop:
                 value = take_rows(value, r0, r1, self._ROW_AXES[name])
             setattr(view, name, map_tensors(lambda t: t.to(device), value))
         view.device, view.num_envs, view._row_offset = device, r1 - r0, r0
+        view._graphs = None  # a shard is stepped by parallel.ShardedEnv, op by op
         return view
 
     def rollout(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
@@ -168,9 +194,25 @@ class VectorEnvLoop:
         policy_fn(obs, state) -> [E,2] actions; or fixed ``actions``.
         Returns (dict of collected tensors stacked over steps, mean_reward);
         the mean reward is read on the host once, after the loop, when
-        ``reward`` is collected."""
-        fixed = (self._as_tensor(actions, torch.float32) if actions is not None
-                 else torch.zeros((self.num_envs, 2), device=self.device))
+        ``reward`` is collected. On a CUDA device each step is one replay of
+        the step captured for (policy_fn, collect, num_scenarios, shapes),
+        captured at the first call for that key (core/graph.py); on the CPU
+        the loop runs op by op."""
+        graphs = self._graphs_or_none()
+        if graphs is None:
+            return self._rollout_eager(n_steps, policy_fn, actions, collect)
+        outs = graphs.rollout(self, n_steps, policy_fn, self._fixed_actions(actions), collect)
+        return outs, _mean_reward(outs)
+
+    def _fixed_actions(self, actions):
+        return (self._as_tensor(actions, torch.float32) if actions is not None
+                else torch.zeros((self.num_envs, 2), device=self.device))
+
+    def _rollout_eager(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
+        """`rollout` dispatched op by op, on any device. Nothing chooses it on
+        a CUDA device: it is called by name, to hold the replayed rollout
+        against it and to profile the eager step."""
+        fixed = self._fixed_actions(actions)
         state, obs = self._state, self._last_obs
         outs = {k: [] for k in collect}
         for _ in range(n_steps):
@@ -182,8 +224,11 @@ class VectorEnvLoop:
                 outs[k].append(special[k] if k in special else info[k])
         self._state, self._last_obs = state, obs
         outs = {k: tree_map(lambda *xs: torch.stack(xs), *v) for k, v in outs.items()}
-        mean_reward = float(outs["reward"].mean()) if "reward" in outs else 0.0
-        return outs, mean_reward
+        return outs, _mean_reward(outs)
+
+
+def _mean_reward(outs):
+    return float(outs["reward"].mean()) if "reward" in outs else 0.0
 
 
 class BaseVectorEnv(VectorEnvLoop):
@@ -617,8 +662,9 @@ class BaseVectorEnv(VectorEnvLoop):
         self._state = st.replace(ego=st.ego.replace(break_down=flags))
 
     def snapshot(self):
-        """The full simulation state as a host tree of numpy arrays."""
-        return tree_map(lambda x: x.detach().cpu().numpy(), self._state)
+        """The full simulation state as a host tree of numpy arrays, copied
+        (a replayed step overwrites the state's buffers in place)."""
+        return tree_map(lambda x: x.detach().to("cpu", copy=True).numpy(), self._state)
 
     def restore(self, snap):
         """Restore a snapshot taken from an env with the same config: every
@@ -665,6 +711,7 @@ class BaseVectorEnv(VectorEnvLoop):
 
     def close(self):
         self._state = None
+        self._graphs = None
 
     # -------------------------------------------------------------- spawning
     def _spawn(self, rng, sidx, slot=None):

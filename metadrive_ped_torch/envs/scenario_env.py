@@ -280,6 +280,7 @@ class ScenarioEnv(VectorEnvLoop):
 
     def close(self):
         self._state = None
+        self._graphs = None
 
     def get_map_features(self, scenario_index=0):
         """The scenario's raw SD map_features (ScenarioMap.get_map_features

@@ -179,7 +179,9 @@ def ppo_update(module, optimizer, batch, epochs, minibatches, clip, perm=None, g
 def collect(env, module, key, n_steps, gamma, lam):
     """One rollout of the sampling policy and its GAE: (batch of flat [T*E,
     ...] tensors (obs, act, adv, ret, logp_old), mean step reward)."""
-    obs0 = env._last_obs  # the obs the first action of this rollout sees
+    # the obs the first action of this rollout sees; a clone, since on the
+    # card the rollout overwrites the env's last observation in place
+    obs0 = env._last_obs.clone()
     outs, mean_r = env.rollout(n_steps, policy_fn=sample_policy(module, key),
                                collect=("obs", "reward", "terminated", "truncated", "ego_action"))
     # rollout collects the post-step obs; a_t was sampled from the obs

@@ -12,14 +12,16 @@ tensors. On a CUDA tensor it launches the kernel or raises.
 """
 import collections
 import ctypes
+import sys
 
 import torch
 
 from metadrive_ped_torch.constants import SEG_BROKEN_LINE, SEG_WHITE_LINE, SEG_YELLOW_LINE
-from metadrive_ped_torch.core import cuda_build
+from metadrive_ped_torch.core import cuda_build, launches as launch_counts
 
 # launches of the kernel since the last reset (set to 0 to start counting),
-# in all and by device index (clear to start counting)
+# in all and by device index (clear to start counting); this module is the
+# counter `core.launches.record` keeps, replays of a captured step included
 launches = 0
 launches_by_device = collections.Counter()
 
@@ -138,7 +140,6 @@ def detector_clouds(origin, sidx, side_dirs, lane_dirs, side_dist, lane_dist, ta
     once (none when Rs = Rl = 0), on their own device's current stream:
     every input must lie on origin's device. sidx must lie in [0, S): the kernel
     writes NaN for an env whose sidx does not."""
-    global launches
     if origin.device.type == "cpu":
         return detector_clouds_plain(origin, sidx, side_dirs, lane_dirs, side_dist, lane_dist,
                                      table, counts)
@@ -173,6 +174,5 @@ def detector_clouds(origin, sidx, side_dirs, lane_dirs, side_dist, lane_dist, ta
                  E, Rs, Rl, S, Bl, stream)
     if err != 0:
         raise RuntimeError(f"ray_segment kernel launch failed: cudaError {err}")
-    launches += 1
-    launches_by_device[dev.index] += 1
+    launch_counts.record(sys.modules[__name__], dev.index)
     return side, lane

@@ -124,6 +124,10 @@ class ShardedEnv:
     double with two shards; one process per card (`init_distributed`) does
     not pay that."""
 
+    # the shards' steps run op by op: each shard launches the whole step
+    # from the host; a graph per shard is not built yet (core/graph.py)
+    graph_eager_reason = "each shard launches its whole step from the host; no per-shard graph yet"
+
     def __init__(self, env, mesh=None):
         if type(env) not in SHARDABLE:
             raise TypeError(f"ShardedEnv does not shard {type(env).__name__}: it shards "

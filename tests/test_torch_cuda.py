@@ -9,6 +9,7 @@ tests/conftest.py (which imports jax):
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -170,3 +171,125 @@ def test_sharded_env_launches_on_each_shards_device(cuda):
     assert dict(rs.launches_by_device) == {i: 2 * 6 for i in range(torch.cuda.device_count())}
     for k in ("obs", "reward"):
         assert float((out_p[k] - out_s[k]).abs().max()) <= 1e-5
+
+
+# ---- CUDA-graph replay (metadrive_ped_torch/core/graph.py) -----------------
+
+def _pg_detectors():
+    from metadrive_ped_torch import MetaDriveEnv
+    return MetaDriveEnv(dict(num_envs=64, map="SCS", num_scenarios=2, traffic_density=0.1,
+                             vehicle_config=dict(side_detector=dict(num_lasers=16),
+                                                 lane_line_detector=dict(num_lasers=6))),
+                        device="cuda")
+
+
+def _scenario_lines():
+    from metadrive_ped_torch import MetaDriveEnv, ScenarioEnv
+    from metadrive_ped_torch.scenario import export_scenarios
+    src = MetaDriveEnv(dict(num_envs=4, map="SCS", num_scenarios=4, traffic_density=0.1),
+                       device="cpu")
+    src.reset(seed=0)
+    sds = list(export_scenarios(src, 30, actions=[[0.0, 1.0]] * 4).values())
+    return ScenarioEnv(dict(num_envs=64, scenario_data=sds, reactive_traffic=True, horizon=20,
+                            vehicle_config=dict(side_detector=dict(num_lasers=160))),
+                       device="cuda")
+
+
+def _tollgate():
+    from metadrive_ped_torch import MultiAgentTollgateEnv
+    return MultiAgentTollgateEnv(dict(num_envs=4, num_agents=16), device="cuda")
+
+
+def _equal_trees(x, y):
+    from metadrive_ped_torch.core.graph import leaves
+    xs, ys = leaves(x), leaves(y)
+    return len(xs) == len(ys) and all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+GRAPH_ENVS = dict(pg_detectors=_pg_detectors, scenario_lines=_scenario_lines, tollgate=_tollgate)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_ENVS))
+def test_replay_equals_eager(cuda, name):
+    """The replayed rollout and step against the eager loop from one reset:
+    the same kernels in the same order, so every collected field, the
+    state and the kernel's launches are equal bit for bit."""
+    from metadrive_ped_torch.core.structs import map_tensors
+    from metadrive_ped_torch.ops import ray_segment as rs
+    env = GRAPH_ENVS[name]()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    collect = ("obs", "reward", "terminated", "truncated")
+    runs = []
+    for roll, step in ((env._rollout_eager, env._step_eager), (env.rollout, env.step)):
+        rs.launches = 0
+        env.reset(seed=0)
+        outs = [roll(n, actions=act, collect=collect) for n in (7, 1, 12)]
+        outs += [map_tensors(torch.clone, step(act)) for _ in range(3)]
+        runs.append((outs, map_tensors(torch.clone, (env._state, env._last_obs)), rs.launches))
+    assert _equal_trees(runs[0][:2], runs[1][:2])
+    assert runs[0][2] == runs[1][2] == (0 if env._line_table is None else 24)
+    assert env._graphs.captures == 2 and env._graphs.replays == 23
+
+
+def test_ppo_collection_replay_equals_eager(cuda):
+    """examples/train_ppo.py's collection (the sampling policy inside the
+    graph) replayed and eager: the same batch bit for bit."""
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.core import prng
+    from metadrive_ped_torch.examples import train_ppo as ppo
+    env = MetaDriveEnv(ppo.env_config(64, 4), device="cuda")
+    key = prng.prng_key(0, "cuda")
+    module = ppo.PolicyValue(env.observation_dim, key=key, device="cuda")
+    batches = []
+    for eager in (True, False):
+        env.reset(seed=0)
+        if eager:
+            env.rollout = env._rollout_eager
+        batches.append(ppo.collect(env, module, prng.split(key, 2)[1], 16, 0.99, 0.95))
+        if eager:
+            del env.rollout
+    assert _equal_trees(batches[0][0], batches[1][0])
+    assert batches[0][1] == batches[1][1]
+    assert env._graphs.captures == 1 and env._graphs.replays == 16
+
+
+def test_restore_between_replays(cuda):
+    env = _pg_detectors()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    env.reset(seed=0)
+    env.rollout(5, actions=act)
+    snap = env.snapshot()
+    first, _ = env.rollout(8, actions=act, collect=("obs", "reward", "state"))
+    env.restore(snap)
+    again, _ = env.rollout(8, actions=act, collect=("obs", "reward", "state"))
+    assert _equal_trees(first, again)
+    assert env._graphs.captures == 2
+
+
+def test_a_policy_that_cannot_be_captured_raises(cuda):
+    """A policy that reads a value on the host cannot be captured: rollout
+    raises, runs no step eagerly and leaves the state as it was; a policy
+    that can be captured then replays as before."""
+    env = _pg_detectors()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    env.reset(seed=0)
+    before = env.snapshot()
+
+    def host_policy(obs, state):
+        return act * (obs.sum().item() > -1.0)
+
+    with pytest.raises(RuntimeError):
+        env.rollout(3, policy_fn=host_policy)
+    torch.cuda.synchronize()
+    after = env.snapshot()
+    assert all(np.array_equal(a, b) for a, b in zip(_np_leaves(before), _np_leaves(after)))
+    assert env._graphs.replays == 0
+    outs, _ = env.rollout(3, policy_fn=lambda obs, state: act)
+    assert env._graphs.replays == 3 and bool(torch.isfinite(outs["reward"]).all())
+
+
+def _np_leaves(tree):
+    import dataclasses
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) for x in _np_leaves(getattr(tree, f.name))]
+    return [tree]

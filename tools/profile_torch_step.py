@@ -7,6 +7,7 @@
     python3 tools/profile_torch_step.py --mixed [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --image [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --count-ops
+    (any of the GPU forms) --graph
 
 Builds the env of chip_smoke.py's main path (the `pg` bench protocol with
 the side and lane-line detectors on) or, with --scenario, each of
@@ -20,13 +21,21 @@ its mixed_traffic and ai_protect_noise phases (8192 envs), or, with
 - wall ms per step (host clock around steps ending in a synchronize);
 - device-busy ms per step and the busy share, from torch.profiler's CUDA
   kernel times over the same number of steps;
-- kernel launches per step;
+- kernel launches per step, and host API calls per step (the profiler's
+  CUDA runtime and driver calls: kernel launches, graph launches, copies);
 - device ms, wall ms, launches and peak device memory of each stage of
   the step, each run alone on the step's state (the stages sum to about
   the whole step; --mixed splits the expert traffic into the expert
   observation, the per-NPC lidar and the MLP; --image splits the camera
   into its ray directions, ground hits, box hits and the rest of the
   frame, and the BEV into its texture samples, stamps and stack ring).
+
+These numbers are of the eager step (`_step_eager`, `_rollout_eager`),
+dispatched op by op as before CUDA graphs. With --graph each env's line
+also carries ``replayed``: wall ms, device-busy ms, busy share, kernel
+launches and host API calls of the step as `step` and `rollout` run it on
+the card, one replay of its captured graph (metadrive_ped_torch/core/
+graph.py; the capture happens before the measured steps).
 
 Prints one JSON line per env; with --table, writes the profiler's kernel
 table of the whole step to PATH (one table per env with --scenario,
@@ -64,6 +73,16 @@ def kernel_stats(prof, calls):
             sum(e.count for e in kernels) / calls)
 
 
+def host_api_calls(prof, calls):
+    """(calls per call, the five most frequent by name) of the CUDA runtime
+    and driver API calls (cuda*, cu*) the profiler saw on the host."""
+    from torch.autograd import DeviceType
+    api = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("cu")]
+    top = sorted(api, key=lambda e: -e.count)[:5]
+    return sum(e.count for e in api) / calls, {e.key: e.count / calls for e in top}
+
+
 def profiled(fn, calls):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -91,6 +110,8 @@ def main():
                     help="profile chip_smoke.py's image_obs and top_down phases")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the aten operators of one step of each env, on the CPU")
+    ap.add_argument("--graph", action="store_true",
+                    help="also profile the replayed step (one CUDA-graph replay)")
     args = ap.parse_args()
 
     import torch
@@ -120,7 +141,8 @@ def main():
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
     env.reset(seed=0)
-    row = step_profile(card, "pg_detectors", E, lambda: env.step(act), args.steps, args.table)
+    row = step_profile(card, "pg_detectors", E, lambda: env._step_eager(act), args.steps,
+                       args.table, replayed=args.graph and (lambda: env.step(act)))
 
     # the stages of _step_impl, each alone on the current state
     st, scene, cfg = env._state, env.scene, env.config
@@ -159,9 +181,20 @@ def main():
     return 0
 
 
-def step_profile(card, name, E, step, steps, table):
-    """wall ms, device ms, busy share and launches of ``steps`` calls of
-    step(); writes the kernel table to ``table`` when given."""
+def step_profile(card, name, E, step, steps, table, replayed=None):
+    """wall ms, device ms, busy share, launches and host API calls of
+    ``steps`` calls of step() (the eager step); writes the kernel table to
+    ``table`` when given. With ``replayed``, the same of the replayed step
+    under "replayed" (its table follows the eager one's)."""
+    row = _profile_calls(card, name, E, step, steps, table)
+    if replayed:
+        row["replayed"] = _profile_calls(card, f"{name} (replayed)", E, replayed, steps, table)
+        replayed_ms = row["replayed"]["wall_ms_per_step"]
+        row["replayed"]["wall_speedup"] = row["wall_ms_per_step"] / replayed_ms
+    return row
+
+
+def _profile_calls(card, name, E, step, steps, table):
     import torch
     for _ in range(30):
         step()
@@ -173,6 +206,7 @@ def step_profile(card, name, E, step, steps, table):
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     prof = profiled(step, steps)
     busy_ms, launches = kernel_stats(prof, steps)
+    api_calls, api_top = host_api_calls(prof, steps)
     if table:
         with open(table, "a") as f:
             f.write(f"{name}: {card}; {E} envs; {steps} steps\n")
@@ -180,7 +214,9 @@ def step_profile(card, name, E, step, steps, table):
                                               max_name_column_width=90))
     return dict(wall_ms_per_step=wall_ms, env_steps_per_s=E / wall_ms * 1e3,
                 device_busy_ms_per_step=busy_ms, busy_share=busy_ms / wall_ms,
-                launches_per_step=launches, launch_bound_hint_us_per_launch=wall_ms * 1e3 / launches)
+                launches_per_step=launches, host_api_calls_per_step=api_calls,
+                host_api_calls_top=api_top,
+                launch_bound_hint_us_per_launch=wall_ms * 1e3 / launches if launches else None)
 
 
 def stage_profile(stages):
@@ -228,8 +264,10 @@ def profile_scenarios(card, args):
         E = env.num_envs
         act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
         env.reset(seed=0)
-        row = step_profile(card, name, E, lambda: env.rollout(1, actions=act, collect=()),
-                           args.steps, args.table)
+        row = step_profile(card, name, E, lambda: env._rollout_eager(1, actions=act, collect=()),
+                           args.steps, args.table,
+                           replayed=args.graph and (lambda: env.rollout(1, actions=act,
+                                                                        collect=())))
         st, scene, vc = env._state, env.scene, env.config["vehicle_config"]
         ego, s = st.ego, st.sidx.long()
         pts, npts, arcl = scene.sdc_pts[s], scene.sdc_npts[s], scene.sdc_arclen[s]
@@ -283,10 +321,13 @@ def profile_marl(card, args):
         E = env.num_envs
         act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
         env.reset(seed=0)
-        row = step_profile(card, name, E, lambda: env.rollout(1, actions=act, collect=()),
-                           args.steps, args.table)
-        row["agent_steps_per_s"] = row.pop("env_steps_per_s")
-        row["env_steps_per_s"] = row["agent_steps_per_s"] / env.agents_per_env
+        row = step_profile(card, name, E, lambda: env._rollout_eager(1, actions=act, collect=()),
+                           args.steps, args.table,
+                           replayed=args.graph and (lambda: env.rollout(1, actions=act,
+                                                                        collect=())))
+        for r in filter(None, (row, row.get("replayed"))):
+            r["agent_steps_per_s"] = r.pop("env_steps_per_s")
+            r["env_steps_per_s"] = r["agent_steps_per_s"] / env.agents_per_env
         st, vc = env._state, env.config["vehicle_config"]
         ego = st.ego
         targets, _ = env._lidar_targets(st)
@@ -329,8 +370,10 @@ def profile_mixed(card, args):
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
     env.reset(seed=0)
-    row = step_profile(card, "mixed_traffic", E, lambda: env.rollout(1, actions=act, collect=()),
-                       args.steps, args.table)
+    row = step_profile(card, "mixed_traffic", E,
+                       lambda: env._rollout_eager(1, actions=act, collect=()), args.steps,
+                       args.table,
+                       replayed=args.graph and (lambda: env.rollout(1, actions=act, collect=())))
     st, scene, params = env._state, env.scene, env._npc_expert_params
     lidar = env.config["vehicle_config"]["lidar"]
     npc, ego = st.npc, st.ego
@@ -365,8 +408,8 @@ def profile_mixed(card, args):
     E = env.num_envs
     act = torch.tensor([0.5, 1.0], device="cuda").expand(E, 2).contiguous()
     env.reset(seed=0)
-    row = step_profile(card, "ai_protect_noise", E, lambda: env.step(act), args.steps,
-                       args.table)
+    row = step_profile(card, "ai_protect_noise", E, lambda: env._step_eager(act), args.steps,
+                       args.table, replayed=args.graph and (lambda: env.step(act)))
     st, prev = env._state, env._last_obs
     zeros = torch.zeros(E, device="cuda")
     rays = (E, env.config["vehicle_config"]["lidar"]["num_lasers"])
@@ -400,7 +443,8 @@ def profile_image(card, args):
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
     env.reset(seed=0)
-    row = step_profile(card, "image_obs", E, lambda: env.step(act), args.steps, args.table)
+    row = step_profile(card, "image_obs", E, lambda: env._step_eager(act), args.steps,
+                       args.table, replayed=args.graph and (lambda: env.step(act)))
     st, scene = env._state, env.scene
     modality, w, h = env._sensor_spec()
     cam = env.config["camera"]
@@ -441,7 +485,8 @@ def profile_image(card, args):
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
     env.reset(seed=0)
-    row = step_profile(card, "top_down", E, lambda: env.step(act), args.steps, args.table)
+    row = step_profile(card, "top_down", E, lambda: env._step_eager(act), args.steps,
+                       args.table, replayed=args.graph and (lambda: env.step(act)))
     st = env._state
     tex, org = env._map_textures()
     R, dist = env.config["resolution"], env.config["max_distance"]
