@@ -10,7 +10,8 @@ one replay of the step captured as a CUDA graph at the first call for its
 key (metadrive_ped_torch/core/graph.py); capture synchronises, so the step
 checked under set_sync_debug_mode("error") is a replayed one, and every
 phase line that steps an env carries "graph": whether its steps replayed
-(false only for ShardedEnv, which steps its shards op by op).
+(a ShardedEnv's: each shard's graphs, every step; an image env's: its
+camera frame's graph too), and fails where one did not.
 
 1. device        the card (nvidia-smi name and power limit), torch and CUDA
 2. build         nvcc of every kernel, its seconds and ptxas registers/smem
@@ -123,9 +124,11 @@ phase line that steps an env carries "graph": whether its steps replayed
                  scenarios, traffic 0.05, lidar 240, side 160, lane-line 12)
                  at 1024 envs with an 84x84 rgb camera and a stack of 3:
                  the kernel against its plain version on the env's line
-                 table, then 100 steps through `step` at full throttle:
-                 env-steps/s over steps 50-100, the camera's launches and
-                 device ms per frame and a step's from the profiler, the
+                 table, then 100 steps through `step` at full throttle
+                 (each a replay of the step's graph and of the camera
+                 frame's): env-steps/s over steps 50-100, the camera's
+                 launches and device ms per frame inside its graph and a
+                 step's, with its host API calls, from the profiler, the
                  camera's bound (`camera_bound`), peak device memory
                  (at most 16 GB), kernel launches (steps + 1: the state
                  half), the second step under set_sync_debug_mode("error"),
@@ -176,11 +179,13 @@ phase line that steps an env carries "graph": whether its steps replayed
                  `rollout`: the largest obs and reward gaps (at most 1e-5
                  and 1e-6, tests/test_parallel.py's tolerance), flags
                  equal, env-steps/s of both and their ratio, kernel
-                 launches and device ms a step of both (profiler), kernel
-                 launches shards x (steps + 1), each shard's on its own
-                 device, and one more step of both under
-                 set_sync_debug_mode("error"); then the kernel against
-                 its plain version at the first shard's shapes (E = 4096)
+                 launches, device ms, host API calls and the kernel's
+                 device ms a replayed step of both (profiler; sharded,
+                 each shard's graphs replay), kernel launches shards x
+                 (steps + 1), each shard's on its own device, and one more
+                 step of both under set_sync_debug_mode("error"), a
+                 replay; then the kernel against its plain version at the
+                 first shard's shapes (E = 4096)
 29. sharded_noise  as 28 with lidar noise (gaussian 0.05, dropout 0.1: the
                  key folds in the whole batch's step counts, each shard
                  draws its rows of the batch's noise), 10 steps
@@ -393,11 +398,10 @@ OPS_PER_PAIR = 21
 
 def emit(**fields):
     """Print a phase's line. A line whose "graph" (at its top or in a
-    nested dict) is false fails the phase after it is printed, unless it
-    names the stepped class's ``graph_eager_reason`` (`ShardedEnv`)."""
+    nested dict) is false fails the phase after it is printed."""
     print(json.dumps(fields), flush=True)
     for row in [fields] + [v for v in fields.values() if isinstance(v, dict)]:
-        if row.get("graph") is False and not row.get("graph_eager_reason"):
+        if row.get("graph") is False:
             raise AssertionError(f"{fields.get('phase')}: a step did not replay a CUDA graph: "
                                  f"{json.dumps(fields)[:400]}")
 
@@ -406,6 +410,14 @@ def replays(env):
     """The CUDA-graph replays of ``env`` so far (metadrive_ped_torch/core/graph.py)."""
     graphs = getattr(env, "_graphs", None)
     return graphs.replays if graphs is not None else 0
+
+
+def shard_replays(env):
+    """Each shard's replayed steps so far, for a ShardedEnv (its graphs
+    count them, core/graph.py::ShardedGraphs); [] for another env."""
+    if not hasattr(env, "shards"):
+        return []
+    return list(env._graphs.shard_replays) if env._graphs else [0] * len(env.shards)
 
 
 def replayed(env, steps, before=0):
@@ -881,10 +893,22 @@ def run_cuda_tests(card):
         raise AssertionError(f"cuda_tests: {summary}\n{out.stdout[-4000:]}\n{out.stderr[-2000:]}")
 
 
-def kernel_profile(fn, calls):
-    """(kernel launches, device busy ms) per call of fn(), from the
-    profiler's CUDA kernel records over one call of fn that makes
-    ``calls`` calls."""
+def host_api_calls(prof, calls):
+    """(calls per call, the five most frequent by name) of the CUDA runtime
+    and driver API calls (cuda*, cu*) a profiler saw on the host: kernel
+    and graph launches, copies, events."""
+    from torch.autograd import DeviceType
+    api = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("cu")]
+    top = sorted(api, key=lambda e: -e.count)[:5]
+    return sum(e.count for e in api) / calls, {e.key: e.count / calls for e in top}
+
+
+def call_profile(fn, calls):
+    """Per call of fn(), from the profiler over one call of fn that makes
+    ``calls`` calls: kernel launches, device busy ms, host API calls (and
+    the five most frequent), and the detector kernel's runs and device ms
+    a run (None where the profiler kept no record of it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -892,9 +916,23 @@ def kernel_profile(fn, calls):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return (sum(e.count for e in kernels) / calls,
-            sum(e.self_device_time_total for e in kernels) / 1e3 / calls)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    detector = [e for e in kernels if "detector_clouds_kernel" in e.key]
+    runs = sum(e.count for e in detector)
+    api, api_top = host_api_calls(prof, calls)
+    return dict(launches=sum(e.count for e in kernels) / calls,
+                device_ms=sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+                host_api_calls=api, host_api_calls_top=api_top, detector_runs=runs / calls,
+                detector_device_ms=(sum(e.self_device_time_total for e in detector) / 1e3 / runs
+                                    if runs else None))
+
+
+def kernel_profile(fn, calls):
+    """(kernel launches, device busy ms) per call of fn(), as
+    `call_profile` counts them."""
+    row = call_profile(fn, calls)
+    return row["launches"], row["device_ms"]
 
 
 def step_launches(env, act, steps=2):
@@ -1482,9 +1520,12 @@ def drive_image_obs(card):
     P = 84 * 84
     rows = max(1, camera.RENDER_CHUNK_ELEMENTS // (P * max(L, B, T)))
     bound_ms, bound_by = camera_bound(E, P, L, B, T)
-    cam_launches, cam_ms = kernel_profile(
-        lambda: [env._render_frame(env._state) for _ in range(2)], 2)
-    step_launches_, step_ms = kernel_profile(lambda: [env.step(act) for _ in range(2)], 2)
+    # the camera's kernels inside its graph (two replays of the frame graph),
+    # then two steps: the step's replay, the frame's, the stack
+    frame = env._graphs._frame
+    cam_launches, cam_ms = kernel_profile(lambda: [frame.replay() for _ in range(2)], 2)
+    frames_before = env._graphs.frame_replays
+    step_prof = call_profile(lambda: [env.step(act) for _ in range(2)], 2)
     row = dict(phase="image_obs", num_envs=E, camera=IMAGE_OBS["sensors"]["main_camera"],
                stack_size=IMAGE_OBS["stack_size"], steps=IMAGE_STEPS,
                rate_window=f"steps {IMAGE_TIMED_FROM}-{IMAGE_STEPS}", seconds=seconds,
@@ -1494,11 +1535,16 @@ def drive_image_obs(card):
                camera_launches_per_call=cam_launches, camera_device_ms_per_call=cam_ms,
                camera_bound_ms=bound_ms, camera_bound_by=bound_by,
                camera_share_of_bound=bound_ms / cam_ms if cam_ms else None,
-               step_launches=step_launches_, step_device_ms=step_ms,
+               step_launches=step_prof["launches"], step_device_ms=step_prof["device_ms"],
+               step_host_api_calls=step_prof["host_api_calls"],
+               step_host_api_calls_top=step_prof["host_api_calls_top"],
                image_ok=image_ok, state_ok=state_ok, episodes_finished=finished,
                ray_segment_launches=launches, expected_launches=IMAGE_STEPS + 1,
                host_sync_checked_step=2, peak_memory_bytes=peak,
-               graph=replayed(env, IMAGE_STEPS + 2))
+               peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+               captures=env._graphs.captures,
+               graph=(replayed(env, IMAGE_STEPS + 2)
+                      and env._graphs.frame_replays - frames_before == 2))
     emit(**row)
     if not (image_ok and state_ok):
         raise AssertionError("image_obs: image or state out of shape or range")
@@ -1729,16 +1775,24 @@ def drive_sharded(phase, make_env, cfg, card, steps, kernel_rows=None):
 
     def run(env):
         before = replays(env)
+        shards_before = shard_replays(env)
         outs, seconds, launches, by_device = drive_checked_last(env, collect, steps)
         act = torch.tensor([0.0, 1.0], device=DEVICE).expand(env.num_envs, 2).contiguous()
-        per_step, device_ms = step_launches(env, act, steps=1)
+        # one replayed step that collects nothing, as drive_checked_last's last
+        prof = call_profile(lambda: env.rollout(1, actions=act, collect=()), 1)
+        # drive_checked_last's steps + 2, the profiled step; each shard's too
+        shards = [r - b for r, b in zip(shard_replays(env), shards_before)]
         rate = dict(env_steps_per_s=cfg["num_envs"] * timed / seconds,
                     row_steps_per_s=env.num_envs * timed / seconds,
-                    launches_per_step=per_step, device_ms_per_step=device_ms,
+                    launches_per_step=prof["launches"], device_ms_per_step=prof["device_ms"],
+                    host_api_calls_per_step=prof["host_api_calls"],
+                    host_api_calls_top=prof["host_api_calls_top"],
+                    kernel_runs_per_step=prof["detector_runs"],
+                    kernel_device_ms_in_replay=prof["detector_device_ms"],
                     kernel_launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                    # drive_checked_last's steps + 2, step_launches' 2
-                    graph=replayed(env, steps + 4, before),
-                    graph_eager_reason=getattr(env, "graph_eager_reason", None))
+                    shard_replays=shards,
+                    graph=(replayed(env, steps + 3, before)
+                           and all(r == steps + 3 for r in shards)))
         return outs, rate, by_device
 
     t_phase = time.perf_counter()

@@ -1,14 +1,17 @@
-"""A vector env's step captured as one CUDA graph and replayed once a step.
+"""A vector env's step captured as CUDA graphs and replayed once a step.
 
 The JAX package compiles its step once,
 ``self._step_jit = jax.jit(self._step_impl, donate_argnums=0)``
-(metadrive_ped_tpu/envs/base.py:322), and runs `rollout` "entirely
-on-device via lax.scan (no per-step host dispatch)"
-(metadrive_ped_tpu/envs/base.py:497-529), compiled again only when its key
-``(id(policy_fn), collect, n_steps, num_scenarios)`` changes. PyTorch runs
-eagerly: the host dispatches each of a step's thousands of kernels. Here
-the step is captured once into a `torch.cuda.CUDAGraph`, and every later
-step is one replay of it.
+(metadrive_ped_tpu/envs/base.py:322), runs `rollout` "entirely on-device
+via lax.scan (no per-step host dispatch)" (metadrive_ped_tpu/envs/
+base.py:497-529), compiled again only when its key ``(id(policy_fn),
+collect, n_steps, num_scenarios)`` changes, and compiles the camera frame
+once, ``self._render_jit = jax.jit(self._render_frame)`` (:326-327). Its
+`ShardedEnv` (metadrive_ped_tpu/parallel/mesh.py) runs the same compiled
+step over a sharded state: one SPMD program. PyTorch runs eagerly: the
+host dispatches each of a step's thousands of kernels. Here the step is
+captured once into `torch.cuda.CUDAGraph`s, and every later step replays
+them.
 
 A `StepGraph` holds static input buffers (the state tree, the actions, and
 the last observation where the step reads it: a policy, or the AI
@@ -46,9 +49,30 @@ step is one replay and nothing more) and the step's outputs. The rules:
    found it.
 6. **Kernel launches.** The warm-up's launches are not counted, and the
    capture's go into its tally (`core.launches`): each replay adds the
-   tally to the kernels' counts, so a count stays the kernel's executions.
+   tally to the kernels' counts, so a count stays the kernel's executions
+   on the device it ran on.
 7. **No fallback.** On a CUDA device `step` and `rollout` capture or
    raise. The CPU has no graphs and runs the eager loop.
+
+Two more programs follow the same rules:
+
+- **The camera frame** (`EnvGraphs.frame`, the counterpart of
+  ``_render_jit``): the env's frame of its state, keyed by (modality,
+  width, height, the state's shapes). It reads the state buffers of the
+  graph that stepped the env last (``stepped``), so a replayed step and
+  its frame copy nothing between them; a state that `reset` or `restore`
+  rebound is loaded into those buffers (rule 2).
+- **The sharded step** (`ShardedGraphs`, for `parallel.ShardedEnv`): each
+  shard's `_advance` and `_observe` as two graphs on the shard's device
+  over one set of buffers (`ShardGraph`). Between the two replays runs
+  only what must see every shard (with lidar noise, the batch's step-count
+  sum: each shard's advance graph outputs its part, and the total is
+  formed on the device and copied into every shard's buffer). A
+  `rollout`'s policy sees the joined batch: on a mesh of one device one
+  graph joins the shards' buffers, runs the policy and cuts its actions
+  into the shards' action buffers; across devices the join and the cut
+  are copies between replays around the policy's graph on the mesh's
+  first device.
 """
 import torch
 
@@ -81,14 +105,28 @@ def _unaliased(tree, storages):
     return map_tensors(lambda t: t.clone() if _storage(t) in storages else t, tree)
 
 
+def _region(body):
+    """The captured region of ``body(buffers) -> (new, outs)``: ``new`` maps
+    buffer names to trees written leaf by leaf into those buffers, after
+    every tensor that shares storage with a buffer is cloned (rule 3); the
+    region returns ``outs``."""
+    def run(buffers):
+        storages = {_storage(t) for t in leaves(buffers)}
+        new, outs = _unaliased(body(buffers), storages)
+        for name, tree in new.items():
+            for dst, src in zip(leaves(buffers[name]), leaves(tree)):
+                dst.copy_(src)
+        return outs
+    return run
+
+
 class CudaGraphCapture:
-    """The capture on a CUDA device: warm-up on a side stream, then one
-    `torch.cuda.CUDAGraph` of ``fn(buffers)``."""
+    """Captures on one CUDA device: warm-up on a side stream, then one
+    `torch.cuda.CUDAGraph` a `capture`, on the same stream."""
 
     def __init__(self, device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
-        self.graph = None
 
     def warm_up(self, fn, buffers):
         rng = torch.cuda.get_rng_state(self.device)
@@ -101,14 +139,12 @@ class CudaGraphCapture:
         torch.cuda.set_rng_state(rng, self.device)
 
     def capture(self, fn, buffers):
+        """(the outputs of ``fn(buffers)``, the replay of its graph). A
+        replay runs on its device's current stream."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), torch.cuda.graph(graph, stream=self.stream):
             outs = fn(buffers)
-        self.graph = graph
-        return outs
-
-    def replay(self):
-        self.graph.replay()
+        return outs, graph.replay
 
 
 def capture_backend(device):
@@ -118,35 +154,25 @@ def capture_backend(device):
 
 
 class StepGraph:
-    """One captured step. ``inputs`` maps "state", "actions" and, where the
-    step reads it, "obs" to the current tensors; ``body(buffers)`` returns
-    (new state, new obs, outputs). After a `replay`, `state` and `obs` hold
-    the new state and observation, and `outs` the outputs."""
+    """One captured region over static buffers. ``inputs`` maps names to
+    trees, cloned into the buffers, except the names in ``shared``, whose
+    trees are taken as the buffers (another graph's). ``body(buffers)``
+    returns (new, outs) as `_region` takes them; after a `replay` the
+    buffers hold the new values and `outs` the outputs. ``warm_up=False``
+    where the caller warmed the region up (`ShardGraph`)."""
 
-    def __init__(self, key, capture, body, inputs):
+    def __init__(self, key, capture, body, inputs, shared=(), warm_up=True):
         self.key = key
-        self.buffers = {k: map_tensors(torch.clone, v) for k, v in inputs.items()}
+        self.buffers = {k: v if k in shared else map_tensors(torch.clone, v)
+                        for k, v in inputs.items()}
         self._storages = {_storage(t) for t in leaves(self.buffers)}
-        with launches.uncounted():
-            capture.warm_up(self._region(body), self.buffers)
+        region = _region(body)
+        if warm_up:
+            with launches.uncounted():
+                capture.warm_up(region, self.buffers)
         with launches.capturing() as self.tally:
-            obs, self.outs = capture.capture(self._region(body), self.buffers)
-        self._capture = capture
-        self.state = self.buffers["state"]
-        self.obs = self.buffers.get("obs", obs)
-
-    @staticmethod
-    def _region(body):
-        def run(buffers):
-            new_state, new_obs, outs = body(buffers)
-            storages = {_storage(t) for t in leaves(buffers)}
-            new_state, new_obs, outs = _unaliased((new_state, new_obs, outs), storages)
-            for dst, src in zip(leaves(buffers["state"]), leaves(new_state)):
-                dst.copy_(src)
-            if "obs" in buffers:
-                buffers["obs"].copy_(new_obs)
-            return new_obs, outs
-        return run
+            self.outs, self._replay = capture.capture(region, self.buffers)
+        self.state = self.buffers.get("state")
 
     def load(self, inputs):
         """Copy in every leaf of ``inputs`` whose storage is not its
@@ -159,31 +185,52 @@ class StepGraph:
             b.copy_(t)
 
     def replay(self):
-        self._capture.replay()
+        self._replay()
         launches.replayed(self.tally)
 
 
-class EnvGraphs:
-    """The step graph and the rollout graph of one env (the newest key of
-    each), and how many times they were captured and replayed."""
+def _last_obs(graph):
+    """The observation after a step graph's replay: its buffer where the
+    step reads it, else its output."""
+    return graph.buffers.get("obs", graph.outs[0])
 
-    def __init__(self, capture_cls, device):
-        self._capture_cls, self._device = capture_cls, device
-        self._step = self._rollout = None
-        self.captures = self.replays = 0
 
-    def _graph(self, slot, key, body, inputs):
-        """The graph in ``slot`` loaded with ``inputs``, captured anew when
-        its key is not ``key`` (the old graph is released first)."""
+class _Slots:
+    """The newest graph of each slot, and how many were captured."""
+
+    captures = 0
+
+    def _graph(self, slot, key, build, fresh=False):
+        """The graph in ``slot``, built anew by ``build()`` when its key is
+        not ``key`` or ``fresh`` (the old graph is released first)."""
         graph = getattr(self, slot)
-        if graph is None or graph.key != key:
+        if graph is None or graph.key != key or fresh:
             # drop every reference to the old graph first: its memory pool
             # is freed before the new capture takes one
             graph = None
             setattr(self, slot, None)
-            graph = StepGraph(key, self._capture_cls(self._device), body, inputs)
+            graph = build()
             setattr(self, slot, graph)
             self.captures += 1
+        return graph
+
+
+class EnvGraphs(_Slots):
+    """The step graph, the rollout graph and the frame graph of one env (the
+    newest key of each), how many times they were captured, and how many
+    steps and frames were replayed."""
+
+    def __init__(self, capture_cls, device):
+        self._capture_cls, self._device = capture_cls, device
+        self._step = self._rollout = self._frame = None
+        self.replays = self.frame_replays = 0
+        # the state buffers of the graph that stepped the env last (None:
+        # none did); the frame graph reads them
+        self.stepped = None
+
+    def _loaded(self, slot, key, body, inputs):
+        graph = self._graph(slot, key, lambda: StepGraph(
+            key, self._capture_cls(self._device), body, inputs))
         graph.load(inputs)
         return graph
 
@@ -196,6 +243,10 @@ class EnvGraphs:
             inputs["obs"] = env._last_obs
         return inputs
 
+    def _stepped(self, env, graph):
+        env._state, env._last_obs = graph.state, _last_obs(graph)
+        self.stepped = graph.state
+
     def step(self, env, actions):
         """`_step_impl` with the actions [rows, 2] and, where the env reads
         it (`_prev_obs`), the last observation: (obs, reward, terminated,
@@ -205,14 +256,15 @@ class EnvGraphs:
         def body(b):
             state, obs, reward, terminated, truncated, info = env._step_impl(
                 b["state"], b["actions"], b.get("obs"))
-            return state, obs, (reward, terminated, truncated, info)
+            new = dict(state=state, obs=obs) if "obs" in b else dict(state=state)
+            return new, (obs, (reward, terminated, truncated, info))
 
         key = (reads_obs, env.num_scenarios, signature(env._state, actions))
-        graph = self._graph("_step", key, body, self._inputs(env, actions, reads_obs))
+        graph = self._loaded("_step", key, body, self._inputs(env, actions, reads_obs))
         graph.replay()
         self.replays += 1
-        env._state, env._last_obs = graph.state, graph.obs
-        return (graph.obs.clone(),) + map_tensors(torch.clone, graph.outs)
+        self._stepped(env, graph)
+        return (env._last_obs.clone(),) + map_tensors(torch.clone, graph.outs[1])
 
     def rollout(self, env, n_steps, policy_fn, actions, collect):
         """``n_steps`` replays of the step with ``policy_fn(obs, state)`` or
@@ -224,17 +276,229 @@ class EnvGraphs:
             state, obs, reward, terminated, truncated, info = env._step_impl(b["state"], act)
             special = dict(reward=reward, obs=obs, terminated=terminated, truncated=truncated,
                            **env._rollout_fields(state))
-            return state, obs, {k: special[k] if k in special else info[k] for k in collect}
+            new = dict(state=state, obs=obs) if "obs" in b else dict(state=state)
+            return new, (obs, {k: special[k] if k in special else info[k] for k in collect})
 
         key = (policy_fn, collect, env.num_scenarios, signature(env._state, actions))
-        graph = self._graph("_rollout", key, body,
-                            self._inputs(env, actions, policy_fn is not None))
-        outs = map_tensors(lambda t: t.new_empty((n_steps,) + tuple(t.shape)), graph.outs)
-        pairs = list(zip(leaves(outs), leaves(graph.outs)))
+        graph = self._loaded("_rollout", key, body,
+                             self._inputs(env, actions, policy_fn is not None))
+        outs = _stacked(graph.outs[1], n_steps)
         for t in range(n_steps):
             graph.replay()
-            for dst, src in pairs:
-                dst[t].copy_(src)
+            _copy_step(outs, graph.outs[1], t)
         self.replays += n_steps
-        env._state, env._last_obs = graph.state, graph.obs
+        self._stepped(env, graph)
+        return outs
+
+    def frame(self, env, spec, render):
+        """``render(state)`` replayed over ``env._state``: the graph's
+        output, overwritten by the next frame. ``spec`` (modality, width,
+        height) and the state's shapes key the graph. Where the state is
+        the buffers of the graph that stepped the env last, the frame graph
+        reads them; a state rebound since (`reset`, `restore`) is copied
+        into its buffers, which become ``env._state``."""
+        state = env._state
+        stepped = state is self.stepped
+        key = (spec, signature(state))
+        # a frame graph that reads other buffers than the stepping graph's
+        # is captured again over the stepping graph's
+        fresh = stepped and self._frame is not None and self._frame.state is not state
+        graph = self._graph("_frame", key, lambda: StepGraph(
+            key, self._capture_cls(self._device), lambda b: ({}, render(b["state"])),
+            dict(state=state), shared=("state",) if stepped else ()), fresh=fresh)
+        graph.load(dict(state=state))
+        env._state = graph.state
+        graph.replay()
+        self.frame_replays += 1
+        return graph.outs
+
+
+def _stacked(fields, n_steps):
+    """Empty ``[n_steps, ...]`` tensors shaped as the tensors of ``fields``."""
+    return map_tensors(lambda t: t.new_empty((n_steps,) + tuple(t.shape)), fields)
+
+
+def _copy_step(outs, fields, t):
+    for dst, src in zip(leaves(outs), leaves(fields)):
+        dst[t].copy_(src)
+
+
+class ShardGraph:
+    """One shard's step on its device as two graphs over one set of buffers
+    (``inputs``: "state", "actions" and "obs", the last observation, each
+    cloned): ``advance(buffers)`` and ``observe(buffers, advance's
+    outputs)``, each returning (new, outs) as `_region` takes them. They
+    warm up once, together, as one step."""
+
+    def __init__(self, capture, advance, observe, inputs):
+        buffers = {k: map_tensors(torch.clone, v) for k, v in inputs.items()}
+        adv = _region(advance)
+        with launches.uncounted():
+            capture.warm_up(_region(lambda b: observe(b, adv(b))), buffers)
+        self.advance = StepGraph(None, capture, advance, buffers, tuple(buffers), warm_up=False)
+        self.observe = StepGraph(None, capture, lambda b: observe(b, self.advance.outs),
+                                 buffers, tuple(buffers), warm_up=False)
+        self.buffers, self.load = buffers, self.advance.load
+
+
+def _join_into(dst, parts):
+    """Copy the shards' trees ``parts`` into the joined tree ``dst`` (rows
+    along the first axis, in shard order; a 0-d leaf from the first
+    shard), as `ShardedEnv._gather` joins them."""
+    for d, *ps in zip(leaves(dst), *map(leaves, parts)):
+        if d.dim() == 0:
+            d.copy_(ps[0])
+            continue
+        r = 0
+        for p in ps:
+            d[r:r + p.shape[0]].copy_(p)
+            r += p.shape[0]
+
+
+class _ShardedStep:
+    """The graphs of one key of a `ShardedGraphs`: a `ShardGraph` a shard
+    and, with a policy, the policy's graph on the mesh's first device."""
+
+    def __init__(self, key, capture_cls, senv, blocks, advance, observe, policy_fn):
+        self.key = key
+        self.shards = [ShardGraph(capture_cls(sh.device), advance(sh), observe(sh),
+                                  dict(state=sh._state, actions=a, obs=sh._last_obs))
+                       for sh, a in zip(senv.shards, blocks)]
+        self.policy = None
+        if policy_fn is not None:
+            self._capture_policy(capture_cls, senv, policy_fn)
+
+    def _capture_policy(self, capture_cls, senv, policy_fn):
+        """The policy's graph over the joined batch's own buffers ("obs",
+        "state") on the mesh's first device. On a mesh of one device the
+        graph also joins the shards' buffers into them and cuts the actions
+        into the shards' action buffers; across devices those copies run
+        around its replay (`replay`)."""
+        self._one_device = len(set(senv.mesh)) == 1
+        shards = {k: [u.buffers[k] for u in self.shards] for k in ("obs", "state", "actions")}
+        inputs = dict(obs=senv._gather(shards["obs"]), state=senv._gather(shards["state"]))
+        self._parts = shards
+        if self._one_device:
+            inputs.update(shard_obs=shards["obs"], shard_state=shards["state"],
+                          actions=shards["actions"])
+
+        def body(b):
+            if self._one_device:
+                _join_into(b["obs"], b["shard_obs"])
+                _join_into(b["state"], b["shard_state"])
+            act = policy_fn(b["obs"], b["state"])
+            return (dict(actions=senv._cut(act)) if self._one_device else {}), act
+
+        self.policy = StepGraph(None, capture_cls(senv.mesh[0]), body, inputs,
+                                shared=("shard_obs", "shard_state", "actions"))
+
+    def replay(self, senv):
+        """One sharded step: the policy (with one), every shard's advance,
+        the noise's batch step-count sum, every shard's observe."""
+        if self.policy is not None:
+            if not self._one_device:
+                _join_into(self.policy.buffers["obs"], self._parts["obs"])
+                _join_into(self.policy.buffers["state"], self._parts["state"])
+            self.policy.replay()
+            if not self._one_device:
+                act, r = self.policy.outs, 0
+                for a in self._parts["actions"]:
+                    a.copy_(act[r:r + a.shape[0]])
+                    r += a.shape[0]
+        for u in self.shards:
+            u.advance.replay()
+        if senv._noisy:
+            senv._hand_out_step_sum([u.advance.outs[1] for u in self.shards])
+        for u in self.shards:
+            u.observe.replay()
+
+
+class ShardedGraphs(_Slots):
+    """The captured steps of a `parallel.ShardedEnv`: the newest `step` key
+    and the newest `rollout` key, each a `ShardGraph` a shard (and the
+    policy's graph); how many times they were captured, how many sharded
+    steps were replayed, and each shard's replays."""
+
+    def __init__(self, capture_cls, n_shards):
+        self._capture_cls = capture_cls
+        self._step = self._rollout = None
+        self.replays = 0
+        self.shard_replays = [0] * n_shards
+
+    @staticmethod
+    def _observe(sh):
+        def body(b, adv):
+            return dict(obs=sh._observe(b["state"], *adv[0])), ()
+        return body
+
+    def _loaded(self, slot, key, senv, blocks, advance, policy_fn=None):
+        if any(sh._state is None or sh._last_obs is None for sh in senv.shards):
+            raise RuntimeError("reset() the env first")
+        unit = self._graph(slot, key, lambda: _ShardedStep(
+            key, self._capture_cls, senv, blocks, advance, self._observe, policy_fn))
+        for u, sh, a in zip(unit.shards, senv.shards, blocks):
+            inputs = dict(state=sh._state, obs=sh._last_obs)
+            if policy_fn is None:
+                inputs["actions"] = a
+            u.load(inputs)
+        return unit
+
+    def _replayed(self, senv, unit, steps):
+        """Count ``steps`` replays and leave every shard's state and last
+        observation in its buffers (the frame graph reads them)."""
+        self.replays += steps
+        for k, (u, sh) in enumerate(zip(unit.shards, senv.shards)):
+            self.shard_replays[k] += steps
+            sh._state, sh._last_obs = u.buffers["state"], u.buffers["obs"]
+            sh._graphs_or_none().stepped = sh._state
+
+    def step(self, senv, blocks):
+        """Every shard's `_advance` (reading the last observation where the
+        env does, `_prev_obs`) on its actions block and `_observe`, replayed:
+        each shard's (reward, terminated, truncated, info), the graphs'
+        outputs, overwritten by the next step."""
+        reads_obs = senv.shards[0]._prev_obs() is not None
+
+        def advance(sh):
+            def body(b):
+                state, args, *outs = sh._advance(b["state"], b["actions"],
+                                                 b["obs"] if reads_obs else None)
+                return dict(state=state), (args, senv._step_sum(state), tuple(outs))
+            return body
+
+        states = [sh._state for sh in senv.shards]
+        key = (reads_obs, senv.num_scenarios, signature(states, blocks))
+        unit = self._loaded("_step", key, senv, blocks, advance)
+        unit.replay(senv)
+        self._replayed(senv, unit, 1)
+        return [u.advance.outs[2] for u in unit.shards]
+
+    def rollout(self, senv, n_steps, policy_fn, blocks, collect):
+        """``n_steps`` sharded steps replayed with ``policy_fn(obs, state)``
+        on the joined batch or the fixed actions ``blocks``: each shard's
+        collected fields stacked over steps."""
+        collect = tuple(collect)
+
+        def advance(sh):
+            def body(b):
+                state, args, reward, terminated, truncated, info = sh._advance(
+                    b["state"], b["actions"])
+                special = dict(reward=reward, terminated=terminated, truncated=truncated,
+                               **sh._rollout_fields(state))
+                fields = {k: special[k] if k in special else info[k]
+                          for k in collect if k != "obs"}
+                return dict(state=state), (args, senv._step_sum(state), fields)
+            return body
+
+        states = [sh._state for sh in senv.shards]
+        key = (policy_fn, collect, senv.num_scenarios, signature(states, blocks))
+        unit = self._loaded("_rollout", key, senv, blocks, advance, policy_fn)
+        fields = [{k: u.buffers["obs"] if k == "obs" else u.advance.outs[2][k] for k in collect}
+                  for u in unit.shards]
+        outs = [_stacked(f, n_steps) for f in fields]
+        for t in range(n_steps):
+            unit.replay(senv)
+            for o, f in zip(outs, fields):
+                _copy_step(o, f, t)
+        self._replayed(senv, unit, n_steps)
         return outs

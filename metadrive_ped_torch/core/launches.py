@@ -12,7 +12,8 @@ executions on the card:
 - while `capturing` is open (core/graph.py captures a step), the launch is
   put into the graph and executes nothing: `record` adds it to the
   capture's tally instead, and `replayed(tally)` adds the tally to its
-  counters at each replay of that graph;
+  counters at each replay of that graph (a tally keeps each launch's
+  device, so a `ShardedEnv` shard's replays count on the shard's device);
 - inside `uncounted` (a graph's warm-up steps, thrown away like a check
   against a kernel's plain version) nothing is counted.
 

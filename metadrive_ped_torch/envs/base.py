@@ -110,7 +110,7 @@ class VectorEnvLoop:
         rng = prng.prng_key(0 if seed is None else seed, self.device)
         self._state, obs_args, info = self._reset_state(rng)
         self._last_obs = obs = self._observe(self._state, *obs_args)
-        return self._reset_outputs(self._frame_obs(obs), info)
+        return self._reset_outputs(self._frame_obs(obs, graphs=self._graphs_or_none()), info)
 
     def _graphs_or_none(self):
         """The env's captured steps (`core.graph.EnvGraphs`), or None on the
@@ -143,7 +143,7 @@ class VectorEnvLoop:
             self._last_obs = obs
         else:
             obs, reward, terminated, truncated, info = graphs.step(self, actions)
-        obs = self._frame_obs(obs, terminated, truncated)
+        obs = self._frame_obs(obs, terminated, truncated, graphs)
         return self._step_outputs(obs, reward, terminated, truncated, info)
 
     def _step_impl(self, state, actions, prev_obs=None):
@@ -160,10 +160,11 @@ class VectorEnvLoop:
         """The last observation a step reads (None: the step reads none)."""
         return None
 
-    def _frame_obs(self, obs, terminated=None, truncated=None):
+    def _frame_obs(self, obs, terminated=None, truncated=None, graphs=None):
         """The rows' observation for the user from the state observation
         ``obs``; called without the done flags at reset, where per-row
-        buffers start afresh."""
+        buffers start afresh. Device work of its own replays ``graphs``'s
+        (`core.graph.EnvGraphs`; None: op by op)."""
         return obs
 
     def _reset_outputs(self, obs, info):
@@ -186,7 +187,9 @@ class VectorEnvLoop:
                 value = take_rows(value, r0, r1, self._ROW_AXES[name])
             setattr(view, name, map_tensors(lambda t: t.to(device), value))
         view.device, view.num_envs, view._row_offset = device, r1 - r0, r0
-        view._graphs = None  # a shard is stepped by parallel.ShardedEnv, op by op
+        # not the env's graphs: parallel.ShardedEnv replays the view's step
+        # graphs (core.graph.ShardedGraphs); the view keeps its frame graph
+        view._graphs = None
         return view
 
     def rollout(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
@@ -561,14 +564,14 @@ class BaseVectorEnv(VectorEnvLoop):
         the JAX package's does."""
         return self._last_obs if self.config["use_AI_protector"] else None
 
-    def _frame_obs(self, obs, terminated=None, truncated=None):
+    def _frame_obs(self, obs, terminated=None, truncated=None, graphs=None):
         """With image_observation, {"image": the frame stack, "state": obs};
         the stack starts afresh at reset."""
         if not self.config["image_observation"]:
             return obs
         if terminated is None:
             self._img_stack = None
-        return self._image_obs(obs)
+        return self._image_obs(obs, graphs)
 
     # ---- camera observation (ImageStateObservation, obs/image_obs.py:16-44;
     #      the frame stack of ImageObservation.observe: roll, newest last) --
@@ -601,13 +604,21 @@ class BaseVectorEnv(VectorEnvLoop):
             pitch_deg=cam["pitch"], cam_height=cam["height"], max_dist=cam["max_dist"])
         return out[modality]
 
-    def _image_obs(self, state_vec):
+    def _frame(self, state):
+        """The frame as the observation stacks it: `_render_frame`, or
+        without norm_pixel uint8, frame * 255 truncated."""
+        frame = self._render_frame(state)
+        return frame if self.config["norm_pixel"] else (frame * 255).to(torch.uint8)
+
+    def _image_obs(self, state_vec, graphs=None):
         """{"image": the frame stack [E, H, W, C, stack_size], "state":
-        state_vec}. Without norm_pixel the frame is uint8, frame * 255
-        truncated. The stack stays on the device; `reset` clears it."""
-        frame = self._render_frame(self._state)
-        if not self.config["norm_pixel"]:
-            frame = (frame * 255).to(torch.uint8)
+        state_vec}. With ``graphs`` (`step` and `reset` on a CUDA device)
+        the frame is a replay of the captured `_frame`
+        (`core.graph.EnvGraphs.frame`, the counterpart of the JAX package's
+        ``_render_jit``); without, it runs op by op. The stack stays on the
+        device; `reset` clears it."""
+        frame = (self._frame(self._state) if graphs is None
+                 else graphs.frame(self, self._sensor_spec(), self._frame))
         if self._img_stack is None:
             self._img_stack = frame.new_zeros(frame.shape + (self.config["stack_size"],))
         self._img_stack = torch.cat([self._img_stack[..., 1:], frame[..., None]], dim=-1)

@@ -97,7 +97,7 @@ class TopDownMetaDrive(TopDownSingleFrameMetaDriveEnv):
         chans = [road, frame[..., 4]] + [ring[buflen - 1 - i * skip] for i in range(K)]
         return torch.stack(chans, dim=-1)
 
-    def _frame_obs(self, obs, terminated=None, truncated=None):
+    def _frame_obs(self, obs, terminated=None, truncated=None, graphs=None):
         if terminated is None:
             self._tf_ring = None
             return self._assemble(obs)

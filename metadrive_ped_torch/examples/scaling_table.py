@@ -3,9 +3,11 @@
 
 Every shard sits on the same device, so an n-shard run does the same work
 as the unsharded run of the same TOTAL env count, and any difference in
-throughput is the cost of the data-parallel layer (on the card: the host's
-launches, since each shard launches the whole step). For each n it runs
-the same total batch twice:
+throughput is the cost of the data-parallel layer (on the card: each
+shard's step replays two CUDA graphs of its own rows, advance and observe,
+so the device runs n smaller graphs' kernels and their gaps where the
+unsharded env runs one graph). For each n it runs the same total batch
+twice:
 
   unsharded: E = n * envs_per_device, one env
   sharded:   E = n * envs_per_device, ShardedEnv(env, [device] * n)

@@ -6,12 +6,14 @@ contiguous row blocks, one per mesh device. JAX runs one program over its
 mesh and computes every whole-batch draw and sum as if nothing were
 sharded. PyTorch has no such program: here a shard is a view of the env
 over its rows on its own device (`VectorEnvLoop._shard`), and
-`ShardedEnv` steps the views in turn. Where a row's result depends on the
-whole batch it hands each shard the batch's part:
+`ShardedEnv` steps the views in turn; on CUDA devices each shard's step
+replays its own CUDA graphs (`core.graph.ShardedGraphs`), so the host
+launches a few graphs a step, not every shard's kernels. Where a row's
+result depends on the whole batch it hands each shard the batch's part:
 
 - the lidar noise key folds in the batch's step-count sum, so every shard
   advances before any observes and each is handed the sum of the shards'
-  sums, summed on the devices (no host sync);
+  sums, summed on the devices (no host sync) into a buffer of its own;
 - each shard draws its rows of the batch's [rows, lasers] noise (the
   threefry counters from its first row on, `prng.uniform` ``offset``);
 - reset runs on the whole batch and is then cut, since a reset splits one
@@ -33,7 +35,7 @@ import datetime
 
 import torch
 
-from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core import graph, prng
 from metadrive_ped_torch.core.structs import _Tree, map_tensors, take_rows, tree_map
 from metadrive_ped_torch.envs.marl_envs import (
     MultiAgentBidirectionEnv, MultiAgentBottleneckEnv, MultiAgentIntersectionEnv,
@@ -119,20 +121,22 @@ class ShardedEnv:
     The env's envs must divide over the mesh. Outputs lie on the mesh's
     first device, and equal the unsharded env's. `self.env` is the env's
     view over every row on that device: reset and the host's work of a step
-    run there, and other attributes come from it. In one process, every
-    shard launches the whole step, so on one card the host's launches
-    double with two shards; one process per card (`init_distributed`) does
-    not pay that."""
+    run there, and other attributes come from it. On CUDA devices `step`
+    and `rollout` replay each shard's `_advance` and `_observe` captured as
+    graphs on its device (`core.graph.ShardedGraphs`, captured at the first
+    call of a key, as the unsharded env's), so two shards on one card cost
+    two graphs' replays a step, not twice the host's launches; on the CPU
+    the shards step op by op (`_step_eager`, `_rollout_eager`)."""
 
-    # the shards' steps run op by op: each shard launches the whole step
-    # from the host; a graph per shard is not built yet (core/graph.py)
-    graph_eager_reason = "each shard launches its whole step from the host; no per-shard graph yet"
+    _graphs = None  # core.graph.ShardedGraphs, made at the first step on a card
 
     def __init__(self, env, mesh=None):
         if type(env) not in SHARDABLE:
             raise TypeError(f"ShardedEnv does not shard {type(env).__name__}: it shards "
                             + ", ".join(c.__name__ for c in SHARDABLE))
         self.mesh = make_mesh(mesh)
+        if len({d.type for d in self.mesh}) > 1:
+            raise ValueError(f"the mesh {self.mesh} mixes device types: all CUDA or all CPU")
         n = len(self.mesh)
         envs = env.config["num_envs"]
         if envs % n:
@@ -144,6 +148,11 @@ class ShardedEnv:
         self.shards = [env._shard(r0, r1, d) for (r0, r1), d in zip(self._bounds, self.mesh)]
         lidar = env.config["vehicle_config"]["lidar"]
         self._noisy = lidar.get("gaussian_noise", 0) > 0 or lidar.get("dropout_prob", 0) > 0
+        if self._noisy:
+            # the batch's step-count sum each shard folds into its noise key:
+            # one buffer a shard, filled before it observes (a graph reads it)
+            for sh in self.shards:
+                sh._batch_step_sum = torch.zeros((), dtype=torch.int64, device=sh.device)
         self._cap = None
 
     # ---- moving rows between the whole batch and the shards ---------------
@@ -155,12 +164,12 @@ class ShardedEnv:
 
     def _gather(self, parts, dim=0):
         """The shards' parts joined along ``dim`` on the mesh's first
-        device; a tensor without that axis (a 0-d counter every shard keeps
-        alike) comes from the first shard."""
+        device, copies; a tensor without that axis (a 0-d counter every
+        shard keeps alike) comes from the first shard."""
         first, dev = parts[0], self.mesh[0]
         if torch.is_tensor(first):
             if first.dim() <= dim:
-                return first.to(dev)
+                return first.to(dev, copy=True)
             return torch.cat([p.to(dev) for p in parts], dim)
         if isinstance(first, _Tree):
             return tree_map(lambda *ps: self._gather(list(ps), dim), *parts)
@@ -171,15 +180,35 @@ class ShardedEnv:
             return {k: self._gather([p[k] for p in parts], dim) for k in first}
         return first
 
+    def _step_sum(self, state):
+        """A shard's part of the batch's step-count sum (None without lidar
+        noise, which alone reads it)."""
+        return state.step_count.sum() if self._noisy else None
+
+    def _hand_out_step_sum(self, parts):
+        """The shards' parts summed on the mesh's first device, copied into
+        every shard's buffer."""
+        dev = self.mesh[0]
+        total = sum((p.to(dev) for p in parts[1:]), parts[0].to(dev))
+        for sh in self.shards:
+            sh._batch_step_sum.copy_(total)
+
     def _observe(self, states, obs_args):
         """Every shard's observation, after every shard advanced: with lidar
         noise each is handed the batch's step-count sum."""
         if self._noisy:
-            dev = self.mesh[0]
-            total = sum(st.step_count.sum().to(dev) for st in states)
-            for sh in self.shards:
-                sh._batch_step_sum = total.to(sh.device)
+            self._hand_out_step_sum([self._step_sum(st) for st in states])
         return [sh._observe(st, *args) for sh, st, args in zip(self.shards, states, obs_args)]
+
+    def _graphs_or_none(self):
+        """The shards' captured steps (`core.graph.ShardedGraphs`), or None
+        on a CPU mesh, whose shards step eagerly."""
+        capture = graph.capture_backend(self.mesh[0])
+        if capture is None:
+            return None
+        if self._graphs is None:
+            self._graphs = graph.ShardedGraphs(capture, len(self.shards))
+        return self._graphs
 
     def _follow_cap(self):
         """The shards' scenario band follows the env's `num_scenarios`, which
@@ -216,32 +245,57 @@ class ShardedEnv:
         frames = []
         for sh, o in zip(self.shards, obs):
             sh._last_obs = o
-            frames.append(sh._frame_obs(o))
+            frames.append(sh._frame_obs(o, graphs=sh._graphs_or_none()))
         self._cap = host.num_scenarios
         return host._reset_outputs(self._gather(frames), info)
 
     def step(self, actions):
         """One step of every shard; the host's work before and after it runs
-        once, on the whole batch."""
+        once, on the whole batch. On CUDA devices each shard's step is a
+        replay of its graphs (`core.graph.ShardedGraphs.step`)."""
+        return self._step(actions, self._graphs_or_none())
+
+    def _step_eager(self, actions):
+        """`step` with every shard's step dispatched op by op, on any mesh.
+        Nothing chooses it: it is called by name, to hold the replayed step
+        against it and to profile the eager step."""
+        return self._step(actions, None)
+
+    def _step(self, actions, graphs):
         host = self.env
         blocks = self._cut(host._step_actions(actions))
-        adv = [sh._advance(sh._state, a, sh._prev_obs()) for sh, a in zip(self.shards, blocks)]
-        states = [a[0] for a in adv]
-        obs = self._observe(states, [a[1] for a in adv])
-        frames = []
-        for sh, st, o, (_, _, _, term, trunc, _) in zip(self.shards, states, obs, adv):
-            sh._state, sh._last_obs = st, o
-            frames.append(sh._frame_obs(o, term, trunc))
-        reward, terminated, truncated, info = (self._gather([a[i] for a in adv])
-                                               for i in range(2, 6))
+        if graphs is None:
+            adv = [sh._advance(sh._state, a, sh._prev_obs())
+                   for sh, a in zip(self.shards, blocks)]
+            states = [a[0] for a in adv]
+            obs = self._observe(states, [a[1] for a in adv])
+            for sh, st, o in zip(self.shards, states, obs):
+                sh._state, sh._last_obs = st, o
+            outs = [a[2:] for a in adv]
+        else:
+            outs = graphs.step(self, blocks)
+        frames = [sh._frame_obs(sh._last_obs, term, trunc, graphs and sh._graphs_or_none())
+                  for sh, (_, term, trunc, _) in zip(self.shards, outs)]
+        # joined copies: the graphs' outputs are overwritten by the next step
+        reward, terminated, truncated, info = (self._gather([o[i] for o in outs])
+                                               for i in range(4))
         out = host._step_outputs(self._gather(frames), reward, terminated, truncated, info)
         self._follow_cap()
         return out
 
+    def _blocks(self, actions):
+        host = self.env
+        fixed = (host._as_tensor(actions, torch.float32) if actions is not None
+                 else torch.zeros((host.num_envs, 2), device=host.device))
+        return self._cut(fixed.reshape(host.num_envs, -1))
+
     def rollout(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
         """`VectorEnvLoop.rollout` over the shards, with no host sync inside
-        the loop: every step launches the shards in turn, and the collected
-        tensors are joined once, after the loop.
+        the loop; the collected tensors are joined once, after the loop. On
+        CUDA devices every step replays each shard's graphs, captured at the
+        first call for (policy_fn, collect, num_scenarios, shapes) as the
+        unsharded env's (`core.graph.ShardedGraphs.rollout`); on the CPU the
+        shards step op by op.
 
         ``policy_fn(obs, state)`` sees the whole batch: the observation
         [rows, D] and the state joined on the mesh's first device, as the
@@ -249,10 +303,23 @@ class ShardedEnv:
         shards. A policy that draws over the batch from one key (as
         examples/train_ppo.py's `sample_policy` does) thus gives the
         unsharded result, for a copy of the state a step."""
-        host = self.env
-        fixed = (host._as_tensor(actions, torch.float32) if actions is not None
-                 else torch.zeros((host.num_envs, 2), device=host.device))
-        blocks = self._cut(fixed.reshape(host.num_envs, -1))
+        graphs = self._graphs_or_none()
+        if graphs is None:
+            return self._rollout_eager(n_steps, policy_fn, actions, collect)
+        outs = graphs.rollout(self, n_steps, policy_fn, self._blocks(actions), collect)
+        return self._joined_outs(outs, collect)
+
+    def _joined_outs(self, outs, collect):
+        outs = {k: self._gather([o[k] for o in outs], dim=1) for k in collect}
+        mean_reward = float(outs["reward"].mean()) if "reward" in outs else 0.0
+        return outs, mean_reward
+
+    def _rollout_eager(self, n_steps, policy_fn=None, actions=None, collect=("reward",)):
+        """`rollout` with every shard's step dispatched op by op, on any
+        mesh. Nothing chooses it on CUDA devices: it is called by name, to
+        hold the replayed rollout against it and to profile the eager
+        step."""
+        blocks = self._blocks(actions)
         states = [sh._state for sh in self.shards]
         obs = [sh._last_obs for sh in self.shards]
         outs = [{k: [] for k in collect} for _ in self.shards]
@@ -272,9 +339,7 @@ class ShardedEnv:
             sh._state, sh._last_obs = st, o
         stacked = [{k: tree_map(lambda *xs: torch.stack(xs), *v) for k, v in out.items()}
                    for out in outs]
-        outs = {k: self._gather([s[k] for s in stacked], dim=1) for k in collect}
-        mean_reward = float(outs["reward"].mean()) if "reward" in outs else 0.0
-        return outs, mean_reward
+        return self._joined_outs(stacked, collect)
 
     def mean_metrics(self, info, keys=("step_reward", "cost")):
         """Means over every row of every shard (`step`'s info is joined)."""
@@ -284,6 +349,7 @@ class ShardedEnv:
         for sh in self.shards:
             sh.close()
         self.env.close()
+        self._graphs = None
 
     # ---- the state, and the methods that read or write it ----------------
     @property

@@ -173,6 +173,97 @@ def test_sharded_env_launches_on_each_shards_device(cuda):
         assert float((out_p[k] - out_s[k]).abs().max()) <= 1e-5
 
 
+def test_sharded_step_is_replays_only(cuda):
+    """ShardedEnv over [cuda:0, cuda:0] after its captures: a replayed
+    rollout equals the eager shard loop bit for bit, and a step launches
+    two graphs a shard (advance, observe) and no kernel of a shard's step
+    from the host (the eager step launches thousands)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metadrive_ped_torch.parallel import ShardedEnv
+    make = lambda: ShardedEnv(_pg_detectors(), ["cuda:0"] * 2)  # noqa: E731
+    a, b = make(), make()
+    act = torch.tensor([[0.0, 1.0]] * a.num_envs, device="cuda")
+    collect = ("obs", "reward", "terminated", "truncated", "state")
+    for env in (a, b):
+        env.reset(seed=0)
+    assert _equal_trees(a.rollout(6, actions=act, collect=collect),
+                        b._rollout_eager(6, actions=act, collect=collect))
+    a.rollout(1, actions=act, collect=())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        a.rollout(1, actions=act, collect=())
+        torch.cuda.synchronize()
+    count = lambda prefix: sum(e.count for e in prof.key_averages()  # noqa: E731
+                               if e.key.startswith(prefix))
+    assert count("cudaGraphLaunch") == 2 * 2
+    assert count("cudaLaunchKernel") <= 4
+    assert a._graphs.replays == 8 and a._graphs.shard_replays == [8, 8]
+
+
+def _sharded_pair(name):
+    """Two ShardedEnvs over [cuda:0, cuda:0] of one small config, reset
+    with seed 0, and the case's policy (examples/train_ppo.py's sampling
+    policy) or None."""
+    from metadrive_ped_torch import MetaDriveEnv, MultiAgentRoundaboutEnv
+    from metadrive_ped_torch.core import prng
+    from metadrive_ped_torch.examples import train_ppo as ppo
+    from metadrive_ped_torch.parallel import ShardedEnv
+    cfg = dict(num_envs=64, map="SCS", num_scenarios=2, traffic_density=0.1,
+               vehicle_config=dict(side_detector=dict(num_lasers=16),
+                                   lane_line_detector=dict(num_lasers=6)))
+    make = lambda: MetaDriveEnv(cfg, device="cuda")  # noqa: E731
+    if name == "lidar_noise":
+        noisy = dict(cfg["vehicle_config"], lidar=dict(gaussian_noise=0.05, dropout_prob=0.1))
+        make = lambda: MetaDriveEnv(dict(cfg, vehicle_config=noisy), device="cuda")  # noqa: E731
+    elif name == "roundabout":
+        make = lambda: MultiAgentRoundaboutEnv(dict(num_envs=16, num_agents=4),  # noqa: E731
+                                               device="cuda")
+    pair = [ShardedEnv(make(), ["cuda:0"] * 2) for _ in range(2)]
+    for env in pair:
+        env.reset(seed=0)
+    policy = None
+    if name == "batch_key_policy":
+        key = prng.prng_key(0, "cuda")
+        policy = ppo.sample_policy(
+            ppo.PolicyValue(pair[0].observation_dim, key=key, device="cuda"), prng.split(key, 2)[1])
+    return pair, policy
+
+
+@pytest.mark.parametrize("name", ["fixed_actions", "lidar_noise", "batch_key_policy",
+                                  "roundabout"])
+def test_sharded_replay_equals_eager(cuda, name):
+    """ShardedEnv's replayed rollout and step against its eager shard loop
+    from one reset: every collected field and the state bit for bit."""
+    (a, b), policy = _sharded_pair(name)
+    act = torch.tensor([[0.0, 1.0]] * a.num_envs, device="cuda")
+    kw = dict(policy_fn=policy) if policy else dict(actions=act)
+    collect = ("obs", "reward", "terminated", "truncated", "state")
+    for n in (7, 1, 12):
+        assert _equal_trees(a.rollout(n, collect=collect, **kw),
+                            b._rollout_eager(n, collect=collect, **kw))
+    step_act = act.reshape(a.config["num_envs"], -1, 2)
+    for _ in range(3):
+        assert _equal_trees(a.step(step_act), b._step_eager(step_act))
+    assert _equal_trees((a._state, a._last_obs), (b._state, b._last_obs))
+    assert a._graphs.captures == 2 and a._graphs.shard_replays == [23, 23]
+
+
+def test_camera_frame_replay_equals_eager(cuda):
+    """The camera observation through the frame graph against the eager
+    frame (`_step_eager` renders op by op), over 3 steps and a reset."""
+    from metadrive_ped_torch import MetaDriveEnv
+    cfg = dict(num_envs=64, map="SCS", num_scenarios=2, traffic_density=0.1,
+               image_observation=True, stack_size=3, sensors=dict(main_camera=("rgb", 32, 32)))
+    a, b = MetaDriveEnv(cfg, device="cuda"), MetaDriveEnv(cfg, device="cuda")
+    act = torch.tensor([[0.0, 1.0]] * 64, device="cuda")
+    for seed in (0, 1):
+        assert _equal_trees(a.reset(seed=seed), b.reset(seed=seed))
+        for _ in range(3):
+            assert _equal_trees(a.step(act), b._step_eager(act))
+    assert a._graphs.frame_replays == 8 and a._graphs._frame.state is a._graphs._step.state
+
+
 # ---- CUDA-graph replay (metadrive_ped_torch/core/graph.py) -----------------
 
 def _pg_detectors():

@@ -47,15 +47,14 @@ class EagerGraph:
 
     def capture(self, fn, buffers):
         EagerGraph.captures += 1
-        self.fn, self.buffers = fn, buffers
-        self.outs = fn(map_tensors(torch.clone, buffers))
-        return self.outs
+        outs = fn(map_tensors(torch.clone, buffers))
 
-    def replay(self):
-        with launches.uncounted():
-            new = self.fn(self.buffers)
-        for dst, src in zip(graph.leaves(self.outs), graph.leaves(new)):
-            dst.copy_(src)
+        def replay():
+            with launches.uncounted():
+                new = fn(buffers)
+            for dst, src in zip(graph.leaves(outs), graph.leaves(new)):
+                dst.copy_(src)
+        return outs, replay
 
 
 @pytest.fixture
@@ -249,16 +248,191 @@ def test_launch_counts_outside_inside_and_after_a_capture():
     assert (counter.launches, dict(counter.launches_by_device)) == (7, {0: 1, 1: 6})
 
 
-def test_sharded_env_steps_its_shards_eagerly(replays):
-    """`ShardedEnv` launches each shard's step op by op: neither it nor its
-    shards capture, and it equals the replayed unsharded env."""
+# ---- ShardedEnv: each shard's step replayed (core.graph.ShardedGraphs) ---
+
+def _sample_policy(env):
+    """examples/train_ppo.py's sampling policy: an MLP and a draw over the
+    batch from one key (folded with the batch's step-count sum)."""
+    from metadrive_ped_torch.core import prng
+    from metadrive_ped_torch.examples import train_ppo as ppo
+    key = prng.prng_key(0, "cpu")
+    return ppo.sample_policy(ppo.PolicyValue(env.observation_dim, key=key, device="cpu"),
+                             prng.split(key, 2)[1])
+
+
+NOISE = dict(CFG, vehicle_config=dict(CFG["vehicle_config"],
+                                      lidar=dict(gaussian_noise=0.05, dropout_prob=0.1)))
+# name -> (class, config, mesh, policy maker or None)
+SHARDED = {
+    "fixed_actions": (T.MetaDriveEnv, CFG, ["cpu"] * 2, None),
+    "batch_key_policy": (T.MetaDriveEnv, CFG, ["cpu"] * 2, _sample_policy),
+    # distinct mesh entries: the policy's join and cut run between replays
+    "batch_key_policy_two_devices": (T.MetaDriveEnv, CFG, ["cpu:0", "cpu:1"], _sample_policy),
+    "lidar_noise": (T.MetaDriveEnv, NOISE, ["cpu"] * 2, None),
+    "roundabout": (T.MultiAgentRoundaboutEnv, dict(num_envs=2, num_agents=4), ["cpu"] * 2, None),
+}
+
+
+def sharded_trio(name, cfg=None):
+    """(sharded env, another over the same mesh, the unsharded env), each
+    reset with seed 0, and the case's policy or None."""
     from metadrive_ped_torch.parallel import ShardedEnv
-    a, b = pair()
-    senv = ShardedEnv(b, ["cpu"] * 2)
-    senv.reset(seed=0)
-    assert bit_equal(a.rollout(4, actions=FULL, collect=("reward", "obs"))[0],
-                     senv.rollout(4, actions=FULL, collect=("reward", "obs"))[0])
-    assert EagerGraph.captures == 1 and all(s._graphs is None for s in senv.shards)
+    cls, base, mesh, policy = SHARDED[name]
+    envs = [cls(cfg or base, device="cpu") for _ in range(3)]
+    trio = (ShardedEnv(envs[0], mesh), ShardedEnv(envs[1], mesh), envs[2])
+    for env in trio:
+        env.reset(seed=0)
+    return trio, policy and policy(envs[2])
+
+
+def _step_actions(senv):
+    """Full throttle on every row, in the shape `step` takes ([E, A, 2]
+    for the multi-agent envs)."""
+    return torch.tensor([[0.0, 1.0]] * senv.num_envs).reshape(senv.config["num_envs"], -1, 2)
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED))
+def test_replayed_sharded_rollout_and_step_equal_eager_and_unsharded(replays, name):
+    """The replayed sharded rollout and step, bit for bit against the
+    eager shard loop (`_rollout_eager`, `_step_eager`) and the replayed
+    unsharded env."""
+    (a, b, u), policy = sharded_trio(name)
+    kw = dict(policy_fn=policy) if policy else dict(actions=torch.tensor([[0.0, 1.0]] * a.num_envs))
+    for n in (6, 1, 9):
+        run = a.rollout(n, collect=COLLECT, **kw)
+        assert bit_equal(run, b._rollout_eager(n, collect=COLLECT, **kw))
+        assert bit_equal(run, u.rollout(n, collect=COLLECT, **kw))
+    act = _step_actions(a)
+    for _ in range(4):
+        out = a.step(act)
+        assert bit_equal(out, b._step_eager(act)) and bit_equal(out, u.step(act))
+    assert bit_equal((a._state, a._last_obs), (u._state, u._last_obs))
+    assert bit_equal((a._state, a._last_obs), (b._state, b._last_obs))
+    assert a._graphs.captures == 2 and a._graphs.replays == 20
+    assert a._graphs.shard_replays == [20, 20]
+    # every shard's state and last observation are its graphs' buffers
+    for sh, unit in zip(a.shards, a._graphs._step.shards):
+        assert sh._state is unit.buffers["state"] and sh._last_obs is unit.buffers["obs"]
+
+
+@pytest.mark.parametrize("name", sorted(BETWEEN))
+def test_state_set_between_sharded_rollouts_reaches_the_replay(replays, name):
+    """`restore`, `set_break_down`, `reset` and `replay_frame` rebind the
+    shards' leaves: the next replay loads them (rule 2)."""
+    (a, b, _), _ = sharded_trio("fixed_actions")
+    runs = []
+    for env, roll in ((a, a.rollout), (b, b._rollout_eager)):
+        first = roll(5, actions=FULL, collect=COLLECT)
+        BETWEEN[name](env)
+        runs.append((first, roll(10, actions=FULL, collect=COLLECT)))
+    assert bit_equal(runs[0], runs[1])
+    assert bit_equal(a._state, b._state)
+
+
+def test_a_curriculum_level_reaches_the_sharded_replay(replays):
+    """The curriculum's wider band reaches the shards' next replay: a new
+    num_scenarios captures again, and its scenario cap is loaded."""
+    from metadrive_ped_torch.parallel import ShardedEnv
+    cfg = dict(CFG, num_scenarios=4, horizon=6)
+    a, b = (T.CurriculumWrapper(ShardedEnv(T.MetaDriveEnv(cfg, device="cpu"), ["cpu"] * 2),
+                                curriculum_level=2) for _ in range(2))
+    a.reset(seed=0)
+    b.reset(seed=0)
+    runs = []
+    for w, roll in ((a, a.rollout), (b, b.env._rollout_eager)):
+        first = roll(8, actions=FULL, collect=COLLECT)
+        w.level_up()
+        runs.append((first, roll(20, actions=FULL, collect=COLLECT + ("env_seed",))))
+    assert bit_equal(runs[0], runs[1])
+    assert int(runs[0][1][0]["state"].scenario_cap.min()) == 4
+    assert a.env._graphs.captures == 2
+
+
+def test_sharded_captures_follow_the_key(replays):
+    """As the unsharded env's keys: another length or other fixed actions
+    replay; another collect, a policy, a new policy object, another
+    num_scenarios and `step` capture. A capture is two graphs a shard (its
+    advance and observe), and one more for a policy."""
+    (senv, _, _), _ = sharded_trio("fixed_actions")
+    policy = lambda obs, state: torch.tanh(obs[:, :2])  # noqa: E731
+    calls = [
+        (dict(n_steps=3, actions=FULL), 1, 4),
+        (dict(n_steps=7, actions=FULL), 1, 4),
+        (dict(n_steps=2, actions=FULL * 0.5), 1, 4),
+        (dict(n_steps=2, actions=FULL, collect=("obs",)), 2, 8),
+        (dict(n_steps=2, policy_fn=policy), 3, 13),
+        (dict(n_steps=4, policy_fn=policy), 3, 13),
+        (dict(n_steps=2, policy_fn=lambda o, s: policy(o, s)), 4, 18),
+    ]
+    for kwargs, captures, graphs in calls:
+        senv.rollout(**kwargs)
+        assert (senv._graphs.captures, EagerGraph.captures) == (captures, graphs), kwargs
+    senv.num_scenarios = 1
+    senv.rollout(2, policy_fn=senv._graphs._rollout.key[0])
+    assert (senv._graphs.captures, EagerGraph.captures) == (5, 23)
+    senv.step(_step_actions(senv))
+    senv.step(_step_actions(senv))
+    assert (senv._graphs.captures, EagerGraph.captures) == (6, 27)
+    # each shard's graphs live on its device, over its own buffers
+    units = senv._graphs._step.shards
+    assert [u.advance.state is u.observe.state for u in units] == [True, True]
+    assert units[0].buffers["state"] is not units[1].buffers["state"]
+
+
+def test_sharded_kernel_launches_count_replays_not_captures(replays, monkeypatch):
+    """Each shard's replay adds its capture's tally: the kernel's launches
+    are shards x steps (and one a shard at reset), captures and warm-ups
+    not counted, as the eager shard loop counts them."""
+    plain = ray_segment.detector_clouds
+
+    def counted(*args):
+        launches.record(ray_segment, 7)
+        return plain(*args)
+
+    monkeypatch.setattr(ray_segment, "detector_clouds", counted)
+    monkeypatch.setattr(ray_segment, "launches", 0)
+    monkeypatch.setattr(ray_segment, "launches_by_device", ray_segment.collections.Counter())
+    (a, b, _), _ = sharded_trio("fixed_actions")
+    counts = []
+    for env, roll, step in ((a, a.rollout, a.step), (b, b._rollout_eager, b._step_eager)):
+        ray_segment.launches = 0
+        ray_segment.launches_by_device.clear()
+        env.reset(seed=0)
+        roll(6, actions=FULL, collect=())
+        roll(3, actions=FULL, collect=())
+        step(_step_actions(env))
+        step(_step_actions(env))
+        counts.append((ray_segment.launches, dict(ray_segment.launches_by_device)))
+    assert counts[0] == counts[1] == (2 * 12, {7: 2 * 12})
+    assert EagerGraph.captures == 2 * 2 * 2
+
+
+IMAGE = dict(CFG, image_observation=True, stack_size=3, sensors=dict(main_camera=("rgb", 32, 32)))
+
+
+def test_replayed_camera_frame_equals_the_eager_one(replays):
+    """`_image_obs` through the frame graph (`EnvGraphs.frame`): bit for bit
+    the eager frame and stack over 3 steps; the frame graph reads the step
+    graph's state buffers; `reset` clears the stack and loads the new state;
+    another modality captures a new frame graph."""
+    a, b = T.MetaDriveEnv(IMAGE, device="cpu"), T.MetaDriveEnv(IMAGE, device="cpu")
+    for seed in (0, 1):
+        first = a.reset(seed=seed), b.reset(seed=seed)
+        assert bit_equal(*first)
+        assert not bool(first[0][0]["image"][..., :2].any())  # the stack starts afresh
+        for _ in range(3):
+            # `_step_eager` renders op by op
+            assert bit_equal(a.step(FULL), b._step_eager(FULL))
+            assert a._graphs._frame.state is a._state is a._graphs._step.state
+    # the first reset's frame graph over its own buffers, the first step's
+    # over the step graph's, and the step graph
+    assert a._graphs.captures == 3 and a._graphs.frame_replays == 8
+    for env in (a, b):
+        env.config["sensors"]["main_camera"] = ("depth", 32, 32)
+    assert bit_equal(a.reset(seed=2), b.reset(seed=2))
+    out = a.step(FULL)
+    assert bit_equal(out, b._step_eager(FULL)) and out[0]["image"].shape == (4, 32, 32, 1, 3)
+    assert a._graphs.captures == 5
 
 
 def _pg_case():

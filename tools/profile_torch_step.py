@@ -6,6 +6,7 @@
     python3 tools/profile_torch_step.py --marl [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --mixed [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --image [--steps 10] [--table PATH]
+    python3 tools/profile_torch_step.py --sharded [--steps 10] [--table PATH]
     python3 tools/profile_torch_step.py --count-ops
     (any of the GPU forms) --graph
 
@@ -16,7 +17,9 @@ scenario_reactive, scenario_lines), or, with --marl, its marl (512 envs x
 8 agents), marl_40 and marl_tollgate (256 x 40) phases, or, with --mixed,
 its mixed_traffic and ai_protect_noise phases (8192 envs), or, with
 --image, its image_obs (1024 envs, 84x84 rgb camera, stack 3) and top_down
-(TopDownMetaDrive, 4096 envs) phases, warms it up, then measures:
+(TopDownMetaDrive, 4096 envs) phases, or, with --sharded, its sharded_pg
+phase (the main path's env through ShardedEnv over [cuda:0, cuda:0]),
+warms it up, then measures:
 
 - wall ms per step (host clock around steps ending in a synchronize);
 - device-busy ms per step and the busy share, from torch.profiler's CUDA
@@ -28,14 +31,18 @@ its mixed_traffic and ai_protect_noise phases (8192 envs), or, with
   the whole step; --mixed splits the expert traffic into the expert
   observation, the per-NPC lidar and the MLP; --image splits the camera
   into its ray directions, ground hits, box hits and the rest of the
-  frame, and the BEV into its texture samples, stamps and stack ring).
+  frame, with the frame's graph replayed as one more stage, and the BEV
+  into its texture samples, stamps and stack ring; --sharded has no
+  stages: its line carries the unsharded env's replayed step of the same
+  call beside the sharded one).
 
-These numbers are of the eager step (`_step_eager`, `_rollout_eager`),
-dispatched op by op as before CUDA graphs. With --graph each env's line
-also carries ``replayed``: wall ms, device-busy ms, busy share, kernel
-launches and host API calls of the step as `step` and `rollout` run it on
-the card, one replay of its captured graph (metadrive_ped_torch/core/
-graph.py; the capture happens before the measured steps).
+These numbers are of the eager step (`_step_eager`, `_rollout_eager`;
+with --sharded, the shards' eager loop), dispatched op by op as before
+CUDA graphs. With --graph each env's line also carries ``replayed``: wall
+ms, device-busy ms, busy share, kernel launches and host API calls of the
+step as `step` and `rollout` run it on the card, one replay of its
+captured graph (with --sharded, each shard's two graphs; metadrive_ped_
+torch/core/graph.py; the capture happens before the measured steps).
 
 Prints one JSON line per env; with --table, writes the profiler's kernel
 table of the whole step to PATH (one table per env with --scenario,
@@ -62,6 +69,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+from chip_smoke import host_api_calls  # noqa: E402
 
 
 def kernel_stats(prof, calls):
@@ -71,16 +79,6 @@ def kernel_stats(prof, calls):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return (sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
             sum(e.count for e in kernels) / calls)
-
-
-def host_api_calls(prof, calls):
-    """(calls per call, the five most frequent by name) of the CUDA runtime
-    and driver API calls (cuda*, cu*) the profiler saw on the host."""
-    from torch.autograd import DeviceType
-    api = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CPU and e.key.startswith("cu")]
-    top = sorted(api, key=lambda e: -e.count)[:5]
-    return sum(e.count for e in api) / calls, {e.key: e.count / calls for e in top}
 
 
 def profiled(fn, calls):
@@ -108,6 +106,8 @@ def main():
                     help="profile chip_smoke.py's mixed_traffic and ai_protect_noise phases")
     ap.add_argument("--image", action="store_true",
                     help="profile chip_smoke.py's image_obs and top_down phases")
+    ap.add_argument("--sharded", action="store_true",
+                    help="profile chip_smoke.py's sharded_pg phase (ShardedEnv, two shards)")
     ap.add_argument("--count-ops", action="store_true",
                     help="count the aten operators of one step of each env, on the CPU")
     ap.add_argument("--graph", action="store_true",
@@ -137,6 +137,8 @@ def main():
         return profile_mixed(card, args)
     if args.image:
         return profile_image(card, args)
+    if args.sharded:
+        return profile_sharded(card, args)
     env = MetaDriveEnv(dict(MAIN_PATH, num_envs=args.num_envs), device="cuda")
     E = env.num_envs
     act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
@@ -473,6 +475,7 @@ def profile_image(card, args):
             camera._box_hits(origin[c], cam["height"], d, *(x[c] for x in targets[:4]),
                              t_hgt[c], targets[4][c]) for c, d in zip(chunks, dirs)],
         "camera (whole render, all modalities)": lambda: env._render_frame(st),
+        "camera frame, replayed (its graph, core/graph.py)": env._graphs._frame.replay,
         "image obs (render + frame stack)": lambda: env._image_obs(env._last_obs),
         "state observation (lidar + detector clouds)": lambda: env._observe(st, zeros, zeros),
     }
@@ -515,6 +518,39 @@ def profile_image(card, args):
     }
     print(json.dumps(dict(phase="top_down", card=card, num_envs=E, steps=args.steps, **row,
                           stages=stage_profile(stages))), flush=True)
+    return 0
+
+
+def profile_sharded(card, args):
+    """One JSON line for chip_smoke.py's sharded_pg phase: the main path's
+    env through ShardedEnv over [cuda:0, cuda:0], its shards' eager loop
+    (`_rollout_eager(1)`) and, with --graph, its replayed step
+    (`rollout(1)`: each shard's advance and observe graphs), beside the
+    unsharded env's replayed step in the same call."""
+    import torch
+
+    from chip_smoke import MAIN_PATH
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.parallel import ShardedEnv
+    E = args.num_envs
+    act = torch.tensor([0.0, 1.0], device="cuda").expand(E, 2).contiguous()
+    plain = MetaDriveEnv(dict(MAIN_PATH, num_envs=E), device="cuda")
+    plain.reset(seed=0)
+    unsharded = _profile_calls(card, "pg_detectors (replayed, unsharded)", E,
+                               lambda: plain.rollout(1, actions=act, collect=()), args.steps,
+                               args.table)
+    del plain
+    senv = ShardedEnv(MetaDriveEnv(dict(MAIN_PATH, num_envs=E), device="cuda"), ["cuda:0"] * 2)
+    senv.reset(seed=0)
+    row = step_profile(card, "sharded_pg", E,
+                       lambda: senv._rollout_eager(1, actions=act, collect=()), args.steps,
+                       args.table,
+                       replayed=args.graph and (lambda: senv.rollout(1, actions=act, collect=())))
+    if args.graph:
+        row["replayed"]["sharded_over_unsharded_wall"] = (
+            unsharded["wall_ms_per_step"] / row["replayed"]["wall_ms_per_step"])
+    print(json.dumps(dict(phase="sharded_pg", card=card, num_envs=E, mesh=["cuda:0"] * 2,
+                          steps=args.steps, **row, unsharded_replayed=unsharded)), flush=True)
     return 0
 
 
