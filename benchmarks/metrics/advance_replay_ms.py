@@ -1,0 +1,8 @@
+"""Step pipeline: the median device ms of the program's `advance` span
+(dynamics, traffic, contacts, navigation, auto-reset or respawn) inside
+each replayed step, from the tracer's stage stamps."""
+from benchmarks import program_trace
+
+
+def read(trace, env):
+    return program_trace.replay_ms(trace, env, "advance")

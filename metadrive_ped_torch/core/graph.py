@@ -53,6 +53,15 @@ step is one replay and nothing more) and the step's outputs. The rules:
    on the device it ran on.
 7. **No fallback.** On a CUDA device `step` and `rollout` capture or
    raise. The CPU has no graphs and runs the eager loop.
+8. **Tracing** (core/trace.py). The step and rollout keys hold whether
+   tracing is on: a graph captured with it on holds the stage stamps
+   (in an env's step and rollout graphs `replay` around the region and
+   `graph.writeback` around the write-back; the env's stages inside, in
+   the shards' graphs too) and the counters,
+   and one captured with it off holds exactly the step's kernels. The
+   warm-up stamps and counts nothing. `step` and `rollout` keep host
+   spans around the load (the key, a capture where it is new, the copies
+   of rule 2), each replay, the clones and the collected copies.
 
 Two more programs follow the same rules:
 
@@ -76,7 +85,7 @@ Two more programs follow the same rules:
 """
 import torch
 
-from metadrive_ped_torch.core import launches
+from metadrive_ped_torch.core import launches, trace
 from metadrive_ped_torch.core.structs import map_tensors
 
 WARMUP_STEPS = 2
@@ -105,19 +114,22 @@ def _unaliased(tree, storages):
     return map_tensors(lambda t: t.clone() if _storage(t) in storages else t, tree)
 
 
+def _written(buffers, new, outs):
+    """Write ``new``, which maps buffer names to trees, into those buffers
+    leaf by leaf, after every tensor of ``new`` and ``outs`` that shares
+    storage with a buffer is cloned (rule 3); returns ``outs``."""
+    storages = {_storage(t) for t in leaves(buffers)}
+    new, outs = _unaliased((new, outs), storages)
+    for name, tree in new.items():
+        for dst, src in zip(leaves(buffers[name]), leaves(tree)):
+            dst.copy_(src)
+    return outs
+
+
 def _region(body):
-    """The captured region of ``body(buffers) -> (new, outs)``: ``new`` maps
-    buffer names to trees written leaf by leaf into those buffers, after
-    every tensor that shares storage with a buffer is cloned (rule 3); the
-    region returns ``outs``."""
-    def run(buffers):
-        storages = {_storage(t) for t in leaves(buffers)}
-        new, outs = _unaliased(body(buffers), storages)
-        for name, tree in new.items():
-            for dst, src in zip(leaves(buffers[name]), leaves(tree)):
-                dst.copy_(src)
-        return outs
-    return run
+    """The captured region of ``body(buffers) -> (new, outs)``: ``new``
+    written into the buffers (`_written`); the region returns ``outs``."""
+    return lambda buffers: _written(buffers, *body(buffers))
 
 
 class CudaGraphCapture:
@@ -127,6 +139,7 @@ class CudaGraphCapture:
     def __init__(self, device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
+        trace.ready(device)
 
     def warm_up(self, fn, buffers):
         rng = torch.cuda.get_rng_state(self.device)
@@ -168,7 +181,7 @@ class StepGraph:
         self._storages = {_storage(t) for t in leaves(self.buffers)}
         region = _region(body)
         if warm_up:
-            with launches.uncounted():
+            with launches.uncounted(), trace.muted():
                 capture.warm_up(region, self.buffers)
         with launches.capturing() as self.tally:
             self.outs, self._replay = capture.capture(region, self.buffers)
@@ -230,9 +243,19 @@ class EnvGraphs(_Slots):
 
     def _loaded(self, slot, key, body, inputs):
         graph = self._graph(slot, key, lambda: StepGraph(
-            key, self._capture_cls(self._device), body, inputs))
+            key, self._capture_cls(self._device), self._stamped(body), inputs))
         graph.load(inputs)
         return graph
+
+    def _stamped(self, body):
+        """``body`` with its write-back (`_written`) inside it: the device
+        span `replay`, the write-back the span `graph.writeback` (rule 8)."""
+        def run(b):
+            with trace.stage("replay", self._device):
+                new, outs = body(b)
+                with trace.stage("graph.writeback", self._device):
+                    return {}, _written(b, new, outs)
+        return run
 
     @staticmethod
     def _inputs(env, actions, reads_obs):
@@ -259,12 +282,15 @@ class EnvGraphs(_Slots):
             new = dict(state=state, obs=obs) if "obs" in b else dict(state=state)
             return new, (obs, (reward, terminated, truncated, info))
 
-        key = (reads_obs, env.num_scenarios, signature(env._state, actions))
-        graph = self._loaded("_step", key, body, self._inputs(env, actions, reads_obs))
-        graph.replay()
+        with trace.span("step.load"):
+            key = (reads_obs, env.num_scenarios, signature(env._state, actions), trace.enabled)
+            graph = self._loaded("_step", key, body, self._inputs(env, actions, reads_obs))
+        with trace.span("step.replay"):
+            graph.replay()
         self.replays += 1
         self._stepped(env, graph)
-        return (env._last_obs.clone(),) + map_tensors(torch.clone, graph.outs[1])
+        with trace.span("step.clone"):
+            return (env._last_obs.clone(),) + map_tensors(torch.clone, graph.outs[1])
 
     def rollout(self, env, n_steps, policy_fn, actions, collect):
         """``n_steps`` replays of the step with ``policy_fn(obs, state)`` or
@@ -279,13 +305,17 @@ class EnvGraphs(_Slots):
             new = dict(state=state, obs=obs) if "obs" in b else dict(state=state)
             return new, (obs, {k: special[k] if k in special else info[k] for k in collect})
 
-        key = (policy_fn, collect, env.num_scenarios, signature(env._state, actions))
-        graph = self._loaded("_rollout", key, body,
-                             self._inputs(env, actions, policy_fn is not None))
+        with trace.span("rollout.load"):
+            key = (policy_fn, collect, env.num_scenarios, signature(env._state, actions),
+                   trace.enabled)
+            graph = self._loaded("_rollout", key, body,
+                                 self._inputs(env, actions, policy_fn is not None))
         outs = _stacked(graph.outs[1], n_steps)
         for t in range(n_steps):
-            graph.replay()
-            _copy_step(outs, graph.outs[1], t)
+            with trace.span("rollout.replay"):
+                graph.replay()
+            with trace.span("rollout.collect"):
+                _copy_step(outs, graph.outs[1], t)
         self.replays += n_steps
         self._stepped(env, graph)
         return outs
@@ -333,7 +363,7 @@ class ShardGraph:
     def __init__(self, capture, advance, observe, inputs):
         buffers = {k: map_tensors(torch.clone, v) for k, v in inputs.items()}
         adv = _region(advance)
-        with launches.uncounted():
+        with launches.uncounted(), trace.muted():
             capture.warm_up(_region(lambda b: observe(b, adv(b))), buffers)
         self.advance = StepGraph(None, capture, advance, buffers, tuple(buffers), warm_up=False)
         self.observe = StepGraph(None, capture, lambda b: observe(b, self.advance.outs),
@@ -467,7 +497,7 @@ class ShardedGraphs(_Slots):
             return body
 
         states = [sh._state for sh in senv.shards]
-        key = (reads_obs, senv.num_scenarios, signature(states, blocks))
+        key = (reads_obs, senv.num_scenarios, signature(states, blocks), trace.enabled)
         unit = self._loaded("_step", key, senv, blocks, advance)
         unit.replay(senv)
         self._replayed(senv, unit, 1)
@@ -491,7 +521,7 @@ class ShardedGraphs(_Slots):
             return body
 
         states = [sh._state for sh in senv.shards]
-        key = (policy_fn, collect, senv.num_scenarios, signature(states, blocks))
+        key = (policy_fn, collect, senv.num_scenarios, signature(states, blocks), trace.enabled)
         unit = self._loaded("_rollout", key, senv, blocks, advance, policy_fn)
         fields = [{k: u.buffers["obs"] if k == "obs" else u.advance.outs[2][k] for k in collect}
                   for u in unit.shards]

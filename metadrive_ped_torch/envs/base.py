@@ -29,7 +29,7 @@ from metadrive_ped_torch.constants import (
     SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
     VEHICLE_CLASS_ORDER, VEHICLE_CLASSES,
 )
-from metadrive_ped_torch.core import graph, prng
+from metadrive_ped_torch.core import graph, prng, trace
 from metadrive_ped_torch.core.device import resolve_device
 from metadrive_ped_torch.core.logger import get_logger
 from metadrive_ped_torch.core.structs import (
@@ -100,6 +100,8 @@ class VectorEnvLoop:
     _row_offset = 0
     _batch_step_sum = None
     _graphs = None  # core.graph.EnvGraphs, made at the first step on a card
+    # the port's spans and counters (core/trace.py), reached through the env
+    tracer = trace
 
     def _as_tensor(self, a, dtype):
         if torch.is_tensor(a):
@@ -136,20 +138,27 @@ class VectorEnvLoop:
         return self._step(actions, None)
 
     def _step(self, actions, graphs):
-        actions = self._step_actions(actions)
-        if graphs is None:
-            self._state, obs, reward, terminated, truncated, info = self._step_impl(
-                self._state, actions, self._prev_obs())
-            self._last_obs = obs
-        else:
-            obs, reward, terminated, truncated, info = graphs.step(self, actions)
-        obs = self._frame_obs(obs, terminated, truncated, graphs)
-        return self._step_outputs(obs, reward, terminated, truncated, info)
+        with trace.span("env.step"):
+            with trace.span("step.actions"):
+                actions = self._step_actions(actions)
+            if graphs is None:
+                self._state, obs, reward, terminated, truncated, info = self._step_impl(
+                    self._state, actions, self._prev_obs())
+                self._last_obs = obs
+            else:
+                obs, reward, terminated, truncated, info = graphs.step(self, actions)
+            with trace.span("step.frame_obs"):
+                obs = self._frame_obs(obs, terminated, truncated, graphs)
+            with trace.span("step.outputs"):
+                return self._step_outputs(obs, reward, terminated, truncated, info)
 
     def _step_impl(self, state, actions, prev_obs=None):
-        state, obs_args, reward, terminated, truncated, info = self._advance(
-            state, actions, prev_obs)
-        return state, self._observe(state, *obs_args), reward, terminated, truncated, info
+        with trace.stage("advance", self.device):
+            state, obs_args, reward, terminated, truncated, info = self._advance(
+                state, actions, prev_obs)
+        with trace.stage("observe", self.device):
+            obs = self._observe(state, *obs_args)
+        return state, obs, reward, terminated, truncated, info
 
     # ---- hooks --------------------------------------------------------------
     def _step_actions(self, actions):
@@ -201,11 +210,14 @@ class VectorEnvLoop:
         the step captured for (policy_fn, collect, num_scenarios, shapes),
         captured at the first call for that key (core/graph.py); on the CPU
         the loop runs op by op."""
-        graphs = self._graphs_or_none()
-        if graphs is None:
-            return self._rollout_eager(n_steps, policy_fn, actions, collect)
-        outs = graphs.rollout(self, n_steps, policy_fn, self._fixed_actions(actions), collect)
-        return outs, _mean_reward(outs)
+        with trace.span("env.rollout"):
+            graphs = self._graphs_or_none()
+            with trace.stage("rollout", self.device):
+                if graphs is None:
+                    return self._rollout_eager(n_steps, policy_fn, actions, collect)
+                outs = graphs.rollout(self, n_steps, policy_fn, self._fixed_actions(actions),
+                                      collect)
+            return outs, _mean_reward(outs)
 
     def _fixed_actions(self, actions):
         return (self._as_tensor(actions, torch.float32) if actions is not None
@@ -982,172 +994,197 @@ class BaseVectorEnv(VectorEnvLoop):
     # ------------------------------------------------------------------ step
     def _advance(self, state, actions, prev_obs=None):
         """The step up to the observation: (state, the `_observe` arguments,
-        reward, terminated, truncated, info)."""
+        reward, terminated, truncated, info). Its stages are device spans of
+        core/trace.py."""
         cfg = self.config
         scene = self.scene
         sidx = state.sidx
         s = sidx.long()
-        # NaN -> 0, +/-inf -> +/-1, clip to [-1, 1]
-        # (reference _preprocess_action -> safe_clip_for_small_array,
-        # base_vehicle.py:204-209 + utils/math.py:16-26)
-        actions = torch.clamp(torch.nan_to_num(actions, nan=0.0, posinf=1.0, neginf=-1.0), -1.0, 1.0)
-        # broken-down vehicles ignore their actions and coast to a stop
-        actions = torch.where(state.ego.break_down[:, None], 0.0, actions)
+        dev = self.device
+        with trace.stage("advance.actions", dev):
+            # NaN -> 0, +/-inf -> +/-1, clip to [-1, 1]
+            # (reference _preprocess_action -> safe_clip_for_small_array,
+            # base_vehicle.py:204-209 + utils/math.py:16-26)
+            actions = torch.clamp(torch.nan_to_num(actions, nan=0.0, posinf=1.0, neginf=-1.0),
+                                  -1.0, 1.0)
+            # broken-down vehicles ignore their actions and coast to a stop
+            actions = torch.where(state.ego.break_down[:, None], 0.0, actions)
 
-        takeover_info = None
-        if cfg["agent_policy"] == "lane_change":
-            state, actions = self._lane_change_actions(state, actions)
-        if cfg["use_AI_protector"] and prev_obs is not None:
-            state, actions, takeover_info = self._ai_protect(state, actions, prev_obs)
+            takeover_info = None
+            if cfg["agent_policy"] == "lane_change":
+                state, actions = self._lane_change_actions(state, actions)
+            if cfg["use_AI_protector"] and prev_obs is not None:
+                state, actions, takeover_info = self._ai_protect(state, actions, prev_obs)
 
-        ego = state.ego
-        # before_step (base_vehicle.py:211-232): save last kinematics, apply action
-        ego = ego.replace(
-            last_pos=ego.pos, last_heading=ego.heading,
-            last_action=ego.current_action, current_action=actions,
-            steering=actions[:, 0], throttle=actions[:, 1],
-            past_pos=torch.cat([ego.past_pos[:, 1:], ego.pos[:, None]], dim=1),
-        )
-
-        # ego dynamics (decision_repeat substeps)
-        dt = cfg["physics_world_step_size"]
-        rep = cfg["decision_repeat"]
-        pos, heading, speed, vel_dir = dynamics.step_vehicle(
-            ego.pos, ego.heading, ego.speed, ego.vel_dir,
-            ego.steering, ego.throttle, ego.params, dt=dt, substeps=rep,
-            enable_reverse=cfg["vehicle_config"]["enable_reverse"],
-        )
-        frozen = self._freeze_mask(state)
-        if frozen is not None:
-            keep = lambda new, old: torch.where(frozen.reshape(frozen.shape + (1,) * (old.dim() - 1)),
-                                                old, new)
-            pos, heading = keep(pos, ego.pos), keep(heading, ego.heading)
-            speed, vel_dir = keep(speed, ego.speed), keep(vel_dir, ego.vel_dir)
-        ego = ego.replace(pos=pos, heading=heading, speed=speed, vel_dir=vel_dir)
-        # rows driven kinematically instead of by the bicycle model
-        ego = self._override_kinematics(state, ego, dt, rep)
-
-        # PG traffic-light phases (opt-in): green -> yellow -> red per arm,
-        # opposite arms antiphased. Computed before the NPC step so red
-        # lights gate IDM traffic too.
-        light_ctx = None
-        if scene.light_lane.shape[1] > 0 and cfg["pg_traffic_lights"]:
-            lcfg = cfg["pg_traffic_lights"]
-            g_dur = int(lcfg.get("green", 30)) if isinstance(lcfg, dict) else 30
-            y_dur = int(lcfg.get("yellow", 4)) if isinstance(lcfg, dict) else 4
-            half = g_dur + y_dur
-            phase = (state.step_count[:, None] + scene.light_offset[s]) % (2 * half)
-            status = torch.where(phase < g_dur, 0, torch.where(phase < half, 1, 2))  # g/y/r
-            light_ctx = dict(
-                status=status, valid=scene.light_valid[s],
-                lane=scene.light_lane[s], long=scene.light_long[s],
-                pos=scene.light_pos[s], heading=scene.light_heading[s],
-                width=scene.light_width[s],
+        with trace.stage("advance.dynamics", dev):
+            ego = state.ego
+            # before_step (base_vehicle.py:211-232): save last kinematics, apply action
+            ego = ego.replace(
+                last_pos=ego.pos, last_heading=ego.heading,
+                last_action=ego.current_action, current_action=actions,
+                steering=actions[:, 0], throttle=actions[:, 1],
+                past_pos=torch.cat([ego.past_pos[:, 1:], ego.pos[:, None]], dim=1),
             )
 
-        # NPC traffic: release by trigger road, IDM actuation, dynamics
-        npc = state.npc
-        cur_road = localization.route_road_at(scene, sidx, ego.slot, ego.route_idx)
-        released = npc.released | (scene.npc_trigger_road[s] == cur_road[:, None])
-        npc = npc.replace(released=released)
-        light_block = None
-        if light_ctx is not None:
-            # red lights hold IDM NPCs at the stop line
-            light_block = (light_ctx["lane"], light_ctx["long"],
-                           light_ctx["valid"] & (light_ctx["status"] == 2))
-        npc = self._step_traffic(state, npc, ego, dt, rep, light_block)
+            # ego dynamics (decision_repeat substeps)
+            dt = cfg["physics_world_step_size"]
+            rep = cfg["decision_repeat"]
+            pos, heading, speed, vel_dir = dynamics.step_vehicle(
+                ego.pos, ego.heading, ego.speed, ego.vel_dir,
+                ego.steering, ego.throttle, ego.params, dt=dt, substeps=rep,
+                enable_reverse=cfg["vehicle_config"]["enable_reverse"],
+            )
+            frozen = self._freeze_mask(state)
+            if frozen is not None:
+                keep = lambda new, old: torch.where(
+                    frozen.reshape(frozen.shape + (1,) * (old.dim() - 1)), old, new)
+                pos, heading = keep(pos, ego.pos), keep(heading, ego.heading)
+                speed, vel_dir = keep(speed, ego.speed), keep(vel_dir, ego.vel_dir)
+            ego = ego.replace(pos=pos, heading=heading, speed=speed, vel_dir=vel_dir)
+            # rows driven kinematically instead of by the bicycle model
+            ego = self._override_kinematics(state, ego, dt, rep)
 
-        # pedestrians / cyclists advance kinematically
-        ped = participants.step_peds(scene, sidx, state.ped, dt * rep)
-        state = state.replace(ego=ego, npc=npc, ped=ped)
+            # PG traffic-light phases (opt-in): green -> yellow -> red per arm,
+            # opposite arms antiphased. Computed before the NPC step so red
+            # lights gate IDM traffic too.
+            light_ctx = None
+            if scene.light_lane.shape[1] > 0 and cfg["pg_traffic_lights"]:
+                lcfg = cfg["pg_traffic_lights"]
+                g_dur = int(lcfg.get("green", 30)) if isinstance(lcfg, dict) else 30
+                y_dur = int(lcfg.get("yellow", 4)) if isinstance(lcfg, dict) else 4
+                half = g_dur + y_dur
+                phase = (state.step_count[:, None] + scene.light_offset[s]) % (2 * half)
+                status = torch.where(phase < g_dur, 0, torch.where(phase < half, 1, 2))  # g/y/r
+                light_ctx = dict(
+                    status=status, valid=scene.light_valid[s],
+                    lane=scene.light_lane[s], long=scene.light_long[s],
+                    pos=scene.light_pos[s], heading=scene.light_heading[s],
+                    width=scene.light_width[s],
+                )
 
-        # contact flags (_state_check, base_vehicle.py:700-792)
-        targets, t_radius = self._lidar_targets(state)
-        t_pos, t_heading, t_len, t_wid, t_active = targets
-        kinds = self._target_slices
-        hits = collision.obb_obb_overlap(
-            ego.pos[:, None, :], ego.heading[:, None],
-            ego.params.length[:, None], ego.params.width[:, None],
-            t_pos, t_heading, t_len, t_wid,
-        ) & t_active
-        if t_radius is not None:
-            # cylinder bodies use the exact OBB-vs-circle test
-            sl = slice(kinds["obj"].start, kinds["ped"].stop)
-            circ = t_radius[:, sl] > 0
-            circ_hits = collision.obb_circle_overlap(
+        with trace.stage("advance.traffic", dev):
+            # NPC traffic: release by trigger road, IDM actuation, dynamics
+            npc = state.npc
+            cur_road = localization.route_road_at(scene, sidx, ego.slot, ego.route_idx)
+            released = npc.released | (scene.npc_trigger_road[s] == cur_road[:, None])
+            npc = npc.replace(released=released)
+            light_block = None
+            if light_ctx is not None:
+                # red lights hold IDM NPCs at the stop line
+                light_block = (light_ctx["lane"], light_ctx["long"],
+                               light_ctx["valid"] & (light_ctx["status"] == 2))
+            npc = self._step_traffic(state, npc, ego, dt, rep, light_block)
+
+            # pedestrians / cyclists advance kinematically
+            ped = participants.step_peds(scene, sidx, state.ped, dt * rep)
+            state = state.replace(ego=ego, npc=npc, ped=ped)
+
+        with trace.stage("advance.contacts", dev):
+            # contact flags (_state_check, base_vehicle.py:700-792)
+            targets, t_radius = self._lidar_targets(state)
+            t_pos, t_heading, t_len, t_wid, t_active = targets
+            kinds = self._target_slices
+            hits = collision.obb_obb_overlap(
                 ego.pos[:, None, :], ego.heading[:, None],
                 ego.params.length[:, None], ego.params.width[:, None],
-                t_pos[:, sl], t_radius[:, sl],
-            ) & t_active[:, sl] & circ
-            hits = torch.cat(
-                [hits[:, :sl.start], torch.where(circ, circ_hits, hits[:, sl]), hits[:, sl.stop:]],
-                dim=1)
-        crash_v = hits[:, kinds["npc"]].any(dim=1)
-        if kinds["agents"].stop > kinds["agents"].start:
-            crash_v = crash_v | hits[:, kinds["agents"]].any(dim=1)
-        obj_hits = hits[:, kinds["obj"]]
-        # toll booths are buildings, not traffic objects
-        is_building = scene.obj_kind[s] == OBJ_BUILDING
-        crash_o = (obj_hits & ~is_building).any(dim=1)
-        crash_b = (obj_hits & is_building).any(dim=1)
-        crash_h = hits[:, kinds["ped"]].any(dim=1)
+                t_pos, t_heading, t_len, t_wid,
+            ) & t_active
+            if t_radius is not None:
+                # cylinder bodies use the exact OBB-vs-circle test
+                sl = slice(kinds["obj"].start, kinds["ped"].stop)
+                circ = t_radius[:, sl] > 0
+                circ_hits = collision.obb_circle_overlap(
+                    ego.pos[:, None, :], ego.heading[:, None],
+                    ego.params.length[:, None], ego.params.width[:, None],
+                    t_pos[:, sl], t_radius[:, sl],
+                ) & t_active[:, sl] & circ
+                hits = torch.cat(
+                    [hits[:, :sl.start], torch.where(circ, circ_hits, hits[:, sl]),
+                     hits[:, sl.stop:]], dim=1)
+            crash_v = hits[:, kinds["npc"]].any(dim=1)
+            if kinds["agents"].stop > kinds["agents"].start:
+                crash_v = crash_v | hits[:, kinds["agents"]].any(dim=1)
+            obj_hits = hits[:, kinds["obj"]]
+            # toll booths are buildings, not traffic objects
+            is_building = scene.obj_kind[s] == OBJ_BUILDING
+            crash_o = (obj_hits & ~is_building).any(dim=1)
+            crash_b = (obj_hits & is_building).any(dim=1)
+            crash_h = hits[:, kinds["ped"]].any(dim=1)
 
-        # rigid contact response: project the bodies apart and kill the
-        # closing velocity (Bullet's per-substep contact resolution,
-        # engine_core.py:350-352)
-        if cfg["contact_response"]:
-            ego, npc = self._resolve_contacts(ego, npc, hits, t_pos, t_heading, t_len, t_wid,
-                                              frozen)
-            state = state.replace(ego=ego, npc=npc)
+            # rigid contact response: project the bodies apart and kill the
+            # closing velocity (Bullet's per-substep contact resolution,
+            # engine_core.py:350-352)
+            if cfg["contact_response"]:
+                ego, npc = self._resolve_contacts(ego, npc, hits, t_pos, t_heading, t_len, t_wid,
+                                                  frozen)
+                state = state.replace(ego=ego, npc=npc)
 
-        # localization + navigation update (after_step,
-        # base_vehicle.py:234-253)
-        loc = localization.localize(scene, sidx, ego.slot, ego.pos, ego.lane, ego.route_idx)
-        ego = ego.replace(lane=loc["lane"], route_idx=loc["route_idx"], on_lane=loc["on_lane"])
-        seg_flags = collision.vehicle_segment_flags(
-            ego.pos, ego.heading, ego.params.length, ego.params.width,
-            *scene.seg_points(sidx),
-            scene.seg_type[s], scene.seg_halfwidth[s], scene.seg_valid[s],
-            (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK),
-        )
-        left, right = localization.boundary_distances(scene, sidx, ego.slot, ego.route_idx, ego.pos)
-        ego = ego.replace(
-            on_yellow_line=seg_flags[SEG_YELLOW_LINE],
-            on_white_line=seg_flags[SEG_WHITE_LINE],
-            crash_sidewalk=seg_flags[SEG_SIDEWALK],
-            crash_vehicle=crash_v, crash_object=crash_o,
-            crash_building=crash_b, crash_human=crash_h,
-            out_of_route=(left < 0) | (right < 0),
-        )
+        with trace.stage("advance.navigation", dev):
+            # localization + navigation update (after_step,
+            # base_vehicle.py:234-253)
+            loc = localization.localize(scene, sidx, ego.slot, ego.pos, ego.lane, ego.route_idx)
+            ego = ego.replace(lane=loc["lane"], route_idx=loc["route_idx"], on_lane=loc["on_lane"])
+            seg_flags = collision.vehicle_segment_flags(
+                ego.pos, ego.heading, ego.params.length, ego.params.width,
+                *scene.seg_points(sidx),
+                scene.seg_type[s], scene.seg_halfwidth[s], scene.seg_valid[s],
+                (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK),
+            )
+            left, right = localization.boundary_distances(scene, sidx, ego.slot, ego.route_idx,
+                                                          ego.pos)
+            ego = ego.replace(
+                on_yellow_line=seg_flags[SEG_YELLOW_LINE],
+                on_white_line=seg_flags[SEG_WHITE_LINE],
+                crash_sidewalk=seg_flags[SEG_SIDEWALK],
+                crash_vehicle=crash_v, crash_object=crash_o,
+                crash_building=crash_b, crash_human=crash_h,
+                out_of_route=(left < 0) | (right < 0),
+            )
 
-        step_count = state.step_count + 1
-        state = state.replace(ego=ego, npc=npc, step_count=step_count)
-        state = self._pre_reward_update(state, loc)
+            step_count = state.step_count + 1
+            state = state.replace(ego=ego, npc=npc, step_count=step_count)
+            state = self._pre_reward_update(state, loc)
 
-        # reward / done / cost (subclass formulas)
-        arrive = localization.arrive_destination(scene, sidx, ego.slot, ego.pos)
-        out_of_road = self._is_out_of_road(ego, state)
-        reward, step_info = self.reward_function(state, loc, arrive, out_of_road)
-        cost, cost_info = self.cost_function(state, out_of_road)
-        terminated, truncated, done_info = self.done_function(state, arrive, out_of_road)
+            # reward / done / cost (subclass formulas)
+            arrive = localization.arrive_destination(scene, sidx, ego.slot, ego.pos)
+            out_of_road = self._is_out_of_road(ego, state)
+            reward, step_info = self.reward_function(state, loc, arrive, out_of_road)
+            cost, cost_info = self.cost_function(state, out_of_road)
+            terminated, truncated, done_info = self.done_function(state, arrive, out_of_road)
 
-        episode_reward = state.episode_reward + reward
-        episode_cost = state.episode_cost + cost
-        # fuel model 3.25*e^(0.01 v_kmh) L/100km (base_vehicle.py:259-271)
-        dist_km = torch.sqrt(((ego.pos - ego.last_pos) ** 2).sum(-1)) / 1000.0
-        step_energy = 3.25 * torch.exp(0.01 * ego.speed * 3.6) * dist_km / 100.0 * 1000.0
-        episode_energy = state.episode_energy + step_energy
-        state = state.replace(
-            episode_reward=episode_reward, episode_cost=episode_cost,
-            episode_energy=episode_energy,
-        )
+            episode_reward = state.episode_reward + reward
+            episode_cost = state.episode_cost + cost
+            # fuel model 3.25*e^(0.01 v_kmh) L/100km (base_vehicle.py:259-271)
+            dist_km = torch.sqrt(((ego.pos - ego.last_pos) ** 2).sum(-1)) / 1000.0
+            step_energy = 3.25 * torch.exp(0.01 * ego.speed * 3.6) * dist_km / 100.0 * 1000.0
+            episode_energy = state.episode_energy + step_energy
+            state = state.replace(
+                episode_reward=episode_reward, episode_cost=episode_cost,
+                episode_energy=episode_energy,
+            )
+            # crash aggregates vehicle/object/building/sidewalk/human
+            # (metadrive_env.py:148-152)
+            crash_any = (ego.crash_vehicle | ego.crash_object | ego.crash_sidewalk
+                         | ego.crash_human | ego.crash_building)
+            env_seed = self._seed_of(sidx)
+
+            # traffic-light contact flags: the ego OBB against each light's
+            # air-wall stop region, a 0.25 m x lane-width box across the lane
+            # end (base_traffic_light.py:17, 44-51; base_vehicle.py:720-733)
+            light_info = {}
+            if light_ctx is not None:
+                wall = collision.obb_obb_overlap(
+                    ego.pos[:, None, :], ego.heading[:, None],
+                    ego.params.length[:, None], ego.params.width[:, None],
+                    light_ctx["pos"], light_ctx["heading"],
+                    torch.full_like(light_ctx["width"], 0.25), light_ctx["width"],
+                ) & light_ctx["valid"]
+                status = light_ctx["status"]
+                light_info = dict(on_green_light=(wall & (status == 0)).any(dim=1),
+                                  on_yellow_light=(wall & (status == 1)).any(dim=1),
+                                  on_red_light=(wall & (status == 2)).any(dim=1))
 
         state, terminated, truncated = self._post_done(state, terminated, truncated)
-        done = terminated | truncated
-        # crash aggregates vehicle/object/building/sidewalk/human
-        # (metadrive_env.py:148-152)
-        crash_any = (ego.crash_vehicle | ego.crash_object | ego.crash_sidewalk
-                     | ego.crash_human | ego.crash_building)
         info = dict(
             arrive_dest=arrive, out_of_road=out_of_road,
             crash_vehicle=ego.crash_vehicle, crash_object=ego.crash_object,
@@ -1159,49 +1196,40 @@ class BaseVectorEnv(VectorEnvLoop):
             velocity=ego.speed, steering=ego.steering, acceleration=ego.throttle,
             step_energy=step_energy, episode_energy=episode_energy,
             episode_reward=episode_reward, episode_length=step_count,
-            env_seed=self._seed_of(sidx),
+            env_seed=env_seed,
         )
         info.update({k: v for k, v in step_info.items() if k != "step_reward"})
         info.update(done_info)
         info.update(cost_info)
         if takeover_info is not None:
             info.update(takeover_info)
+        info.update(light_info)
 
-        # traffic-light contact flags: the ego OBB against each light's
-        # air-wall stop region, a 0.25 m x lane-width box across the lane
-        # end (base_traffic_light.py:17, 44-51; base_vehicle.py:720-733)
-        if light_ctx is not None:
-            wall = collision.obb_obb_overlap(
-                ego.pos[:, None, :], ego.heading[:, None],
-                ego.params.length[:, None], ego.params.width[:, None],
-                light_ctx["pos"], light_ctx["heading"],
-                torch.full_like(light_ctx["width"], 0.25), light_ctx["width"],
-            ) & light_ctx["valid"]
-            status = light_ctx["status"]
-            info["on_green_light"] = (wall & (status == 0)).any(dim=1)
-            info["on_yellow_light"] = (wall & (status == 1)).any(dim=1)
-            info["on_red_light"] = (wall & (status == 2)).any(dim=1)
-
-        # auto-reset done envs in place (vectorized-RL semantics replacing
-        # the reference's explicit env.reset())
-        done = self._reset_mask(state, done)
+        with trace.stage("advance.reset", dev):
+            # auto-reset done envs in place (vectorized-RL semantics replacing
+            # the reference's explicit env.reset())
+            done = self._reset_mask(state, terminated | truncated)
+            if cfg["auto_reset"]:
+                new_keys = prng.split(state.rng, 2)                 # [E,2,2]
+                step_rng, reset_rng = new_keys[:, 0], new_keys[:, 1]
+                cap = state.scenario_cap
+                new_sidx = prng.randint(step_rng, (), 0, cap)
+                fresh = self._spawn(reset_rng, new_sidx)
+                state = tree_map(
+                    lambda new, old: torch.where(done.reshape(done.shape + (1,) * (old.dim() - 1)),
+                                                 new, old),
+                    fresh, state.replace(rng=step_rng),
+                )
+                # _spawn sets the full scenario band; keep the live cap
+                state = state.replace(scenario_cap=cap)
+                ego_long = torch.where(done, 5.0, loc["long"])
+                ego_lat = torch.where(done, 0.0, loc["lat"])
+            else:
+                ego_long, ego_lat = loc["long"], loc["lat"]
         if cfg["auto_reset"]:
-            new_keys = prng.split(state.rng, 2)                 # [E,2,2]
-            step_rng, reset_rng = new_keys[:, 0], new_keys[:, 1]
-            cap = state.scenario_cap
-            new_sidx = prng.randint(step_rng, (), 0, cap)
-            fresh = self._spawn(reset_rng, new_sidx)
-            state = tree_map(
-                lambda new, old: torch.where(done.reshape(done.shape + (1,) * (old.dim() - 1)),
-                                             new, old),
-                fresh, state.replace(rng=step_rng),
-            )
-            # _spawn sets the full scenario band; keep the live cap
-            state = state.replace(scenario_cap=cap)
-            ego_long = torch.where(done, 5.0, loc["long"])
-            ego_lat = torch.where(done, 0.0, loc["lat"])
-        else:
-            ego_long, ego_lat = loc["long"], loc["lat"]
+            # the spawn computes every row and keeps the done ones
+            trace.count("reset.rows", done, dev)
+            trace.count("reset.computed", done.shape[0], dev)
 
         return state, (ego_long, ego_lat), reward, terminated, truncated, info
 
@@ -1298,10 +1326,15 @@ class BaseVectorEnv(VectorEnvLoop):
         if self.config["rl_agent_ratio"] <= 0:
             return None, None
         lidar = self.config["vehicle_config"]["lidar"]
-        actions = mixed_traffic.expert_npc_actions(
-            self.scene, sidx, npc, ego, self._npc_expert_params,
-            num_lasers=lidar["num_lasers"], distance=lidar["distance"])
-        return actions, self.scene.npc_expert[sidx.long()]
+        with trace.stage("advance.traffic.expert", self.device):
+            actions = mixed_traffic.expert_npc_actions(
+                self.scene, sidx, npc, ego, self._npc_expert_params,
+                num_lasers=lidar["num_lasers"], distance=lidar["distance"])
+            mask = self.scene.npc_expert[sidx.long()]
+        # the expert computes every slot; its actions drive the live ones
+        trace.count("expert.live", mask & npc.active, self.device)
+        trace.count("expert.computed", mask.numel(), self.device)
+        return actions, mask
 
     def _pre_reward_update(self, state, loc):
         """Hook after localization and contacts, before reward/done: env

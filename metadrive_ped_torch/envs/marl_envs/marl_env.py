@@ -28,7 +28,7 @@ iterations over device tensors.
 """
 import torch
 
-from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core import prng, trace
 from metadrive_ped_torch.core.structs import tree_map
 from metadrive_ped_torch.envs.metadrive_env import MetaDriveEnv
 from metadrive_ped_torch.ops import collision, idm
@@ -188,17 +188,19 @@ class MultiAgentMetaDrive(MetaDriveEnv):
 
     def _post_done(self, state, terminated, truncated):
         """delay_done bookkeeping and respawn (multi_agent_metadrive.py
-        _after_vehicle_done / _respawn_vehicles)."""
+        _after_vehicle_done / _respawn_vehicles), the device span
+        `advance.reset` (core/trace.py) as the auto-reset is."""
         cfg = self.config
-        newly_done = (terminated | truncated) & (state.dead_timer == 0)
-        timer = torch.where(newly_done, cfg["delay_done"] + 1, state.dead_timer)
-        timer = torch.clamp(timer - 1, min=0)
-        if cfg["allow_respawn"]:
-            state = self._respawn(state, (state.dead_timer == 1) & (timer == 0))
-        state = state.replace(dead_timer=timer)
-        # dead agents emit no further terminations
-        silent = (state.dead_timer > 0) & ~newly_done
-        return state, terminated & ~silent, truncated & ~silent
+        with trace.stage("advance.reset", self.device):
+            newly_done = (terminated | truncated) & (state.dead_timer == 0)
+            timer = torch.where(newly_done, cfg["delay_done"] + 1, state.dead_timer)
+            timer = torch.clamp(timer - 1, min=0)
+            if cfg["allow_respawn"]:
+                state = self._respawn(state, (state.dead_timer == 1) & (timer == 0))
+            state = state.replace(dead_timer=timer)
+            # dead agents emit no further terminations
+            silent = (state.dead_timer > 0) & ~newly_done
+            return state, terminated & ~silent, truncated & ~silent
 
     def _respawn(self, state, mask):
         """Respawn the ``mask`` rows at a random free slot of their env.
@@ -245,6 +247,9 @@ class MultiAgentMetaDrive(MetaDriveEnv):
         do = mask & torch.stack(oks, dim=1).reshape(E * A)
 
         fresh = self._spawn_ego(rng_next, state.sidx.long(), new_slot)
+        # the spawn computes every row and keeps the respawned ones
+        trace.count("reset.rows", do, dev)
+        trace.count("reset.computed", do.shape[0], dev)
         sel = lambda new, old: torch.where(do.reshape(do.shape + (1,) * (old.dim() - 1)), new, old)
         return state.replace(
             ego=tree_map(sel, fresh, ego), rng=rng_next,

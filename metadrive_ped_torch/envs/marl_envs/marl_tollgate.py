@@ -18,6 +18,7 @@ package.
 """
 import torch
 
+from metadrive_ped_torch.core import trace
 from metadrive_ped_torch.envs.marl_envs.marl_env import MultiAgentMetaDrive
 from metadrive_ped_torch.obs.state_obs import ego_core
 from metadrive_ped_torch.ops import lane_geom, ray_segment, raycast
@@ -93,19 +94,22 @@ class MultiAgentTollgateEnv(MultiAgentMetaDrive):
         vc = self.config["vehicle_config"]
         ego = state.ego
         side, lane, lidar = vc["side_detector"], vc["lane_line_detector"], vc["lidar"]
-        side_cloud, lane_cloud = raycast.detector_clouds(
-            ego.pos, ego.heading, state.sidx, (side["num_lasers"], side["distance"]),
-            (lane["num_lasers"], lane["distance"]), *self._line_table)
-        (t_pos, t_heading, t_len, t_wid, t_active), _ = self._lidar_targets(state)
-        cloud = raycast.lidar_cloud(ego.pos, ego.heading, lidar["num_lasers"], lidar["distance"],
-                                    t_pos, t_heading, t_len, t_wid, t_active)
-        # toll flags (marl_tollgate.py:96-110): inside the plaza, and inside
-        # it long enough
-        in_toll = self._in_toll_block(state)
-        stayed = state.aux[:, 0] > vc["min_pass_steps"]
-        toll = torch.stack([in_toll.float(), (in_toll & stayed).float()], dim=-1)
-        return torch.cat([side_cloud, ego_core(self.scene, state.sidx, ego), lane_cloud, cloud,
-                          toll], dim=-1)
+        with trace.stage("observe.features", self.device):
+            side_cloud, lane_cloud = raycast.detector_clouds(
+                ego.pos, ego.heading, state.sidx, (side["num_lasers"], side["distance"]),
+                (lane["num_lasers"], lane["distance"]), *self._line_table)
+            core = ego_core(self.scene, state.sidx, ego)
+            # toll flags (marl_tollgate.py:96-110): inside the plaza, and
+            # inside it long enough
+            in_toll = self._in_toll_block(state)
+            stayed = state.aux[:, 0] > vc["min_pass_steps"]
+            toll = torch.stack([in_toll.float(), (in_toll & stayed).float()], dim=-1)
+        with trace.stage("observe.lidar", self.device):
+            (t_pos, t_heading, t_len, t_wid, t_active), _ = self._lidar_targets(state)
+            cloud = raycast.lidar_cloud(ego.pos, ego.heading, lidar["num_lasers"],
+                                        lidar["distance"], t_pos, t_heading, t_len, t_wid,
+                                        t_active)
+        return torch.cat([side_cloud, core, lane_cloud, cloud, toll], dim=-1)
 
     # ---- toll bookkeeping ---------------------------------------------------
     def _in_toll_block(self, state):

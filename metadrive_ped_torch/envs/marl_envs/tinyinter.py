@@ -22,6 +22,7 @@ Reference: metadrive/envs/marl_envs/tinyinter.py —
 """
 import torch
 
+from metadrive_ped_torch.core import trace
 from metadrive_ped_torch.envs.marl_envs.marl_env import MultiAgentIntersectionEnv
 from metadrive_ped_torch.ops import lane_geom, localization
 from metadrive_ped_torch.ops.math_ops import clip01, heading_vec, rhs_vec
@@ -95,39 +96,42 @@ class MultiAgentTinyInter(MultiAgentIntersectionEnv):
         obs = super()._observe(state, ego_long, ego_lat)
         if not self.config["use_communication_obs"]:
             return obs
-        E, A = self.num_marl_envs, self.agents_per_env
-        lidar_cfg = self.config["vehicle_config"]["lidar"]
-        dist = lidar_cfg["distance"]
-        EA = self._rows_to_EA
-        ego = state.ego
-        pos, heading = EA(ego.pos), EA(ego.heading)                        # [E,A,2], [E,A]
-        move = EA(ego.heading + ego.vel_dir)
-        vel = EA(ego.speed)[..., None] * torch.stack([torch.cos(move), torch.sin(move)], dim=-1)
-        active = EA(state.dead_timer == 0)
+        # the communication features, beside the base observation's
+        with trace.stage("observe.features", self.device):
+            E, A = self.num_marl_envs, self.agents_per_env
+            lidar_cfg = self.config["vehicle_config"]["lidar"]
+            dist = lidar_cfg["distance"]
+            EA = self._rows_to_EA
+            ego = state.ego
+            pos, heading = EA(ego.pos), EA(ego.heading)                        # [E,A,2], [E,A]
+            move = EA(ego.heading + ego.vel_dir)
+            vel = EA(ego.speed)[..., None] * torch.stack([torch.cos(move), torch.sin(move)], dim=-1)
+            active = EA(state.dead_timer == 0)
 
-        # every row against every slot of its env, in the row's frame with a
-        # left-positive lateral axis (the comm slots follow lidar.py's
-        # get_surrounding_vehicles_info projections, base_vehicle.py:986-988)
-        hv = heading_vec(heading)[:, :, None, :]                           # [E,Aego,1,2]
-        lv = -rhs_vec(heading)[:, :, None, :]
+            # every row against every slot of its env, in the row's frame with a
+            # left-positive lateral axis (the comm slots follow lidar.py's
+            # get_surrounding_vehicles_info projections, base_vehicle.py:986-988)
+            hv = heading_vec(heading)[:, :, None, :]                           # [E,Aego,1,2]
+            lv = -rhs_vec(heading)[:, :, None, :]
 
-        def in_frame(rel, limit):
-            return _clip_norm(torch.stack([(rel * hv).sum(-1), (rel * lv).sum(-1)], dim=-1), limit)
+            def in_frame(rel, limit):
+                return _clip_norm(torch.stack([(rel * hv).sum(-1), (rel * lv).sum(-1)], dim=-1),
+                                  limit)
 
-        rel_pos = in_frame(pos[:, None, :, :] - pos[:, :, None, :], dist)  # [E,Aego,Aother,2]
-        rel_vel = in_frame(vel[:, None, :, :] - vel[:, :, None, :], COMM_SPEED_SCALE)
-        slot_id = (torch.arange(A, device=self.device) + 1.0) / A
-        parts = [slot_id[None, None, :, None].expand(E, A, A, 1),
-                 clip01((rel_pos / dist + 1) / 2),
-                 clip01((rel_vel / COMM_SPEED_SCALE + 1) / 2)]
-        if lidar_cfg.get("add_others_navi"):
-            # each slot also sends its two navigation checkpoints
-            for ck in localization.checkpoint_positions(self.scene, state.sidx, ego.slot,
-                                                        ego.route_idx):
-                rel_ck = in_frame(EA(ck)[:, None, :, :] - pos[:, :, None, :], dist)
-                parts.append(clip01((rel_ck / dist + 1) / 2))
-        feats = torch.where(active[:, None, :, None], torch.cat(parts, dim=-1), 0.0)
-        comm = feats.reshape(E * A, -1)
+            rel_pos = in_frame(pos[:, None, :, :] - pos[:, :, None, :], dist)  # [E,Aego,Aother,2]
+            rel_vel = in_frame(vel[:, None, :, :] - vel[:, :, None, :], COMM_SPEED_SCALE)
+            slot_id = (torch.arange(A, device=self.device) + 1.0) / A
+            parts = [slot_id[None, None, :, None].expand(E, A, A, 1),
+                     clip01((rel_pos / dist + 1) / 2),
+                     clip01((rel_vel / COMM_SPEED_SCALE + 1) / 2)]
+            if lidar_cfg.get("add_others_navi"):
+                # each slot also sends its two navigation checkpoints
+                for ck in localization.checkpoint_positions(self.scene, state.sidx, ego.slot,
+                                                            ego.route_idx):
+                    rel_ck = in_frame(EA(ck)[:, None, :, :] - pos[:, :, None, :], dist)
+                    parts.append(clip01((rel_ck / dist + 1) / 2))
+            feats = torch.where(active[:, None, :, None], torch.cat(parts, dim=-1), 0.0)
+            comm = feats.reshape(E * A, -1)
 
         # spliced between the state vector and the lidar cloud
         # (lidar_observe: other_v_info = global_info + cloud_points)

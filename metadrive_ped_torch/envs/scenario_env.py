@@ -30,7 +30,7 @@ from metadrive_ped_torch.constants import (
     BICYCLE_REF_ACCEL, BICYCLE_REF_BRAKE, IDM_ACT_BATCH_SIZE, OBS_MAX_STEERING,
     SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE, TerminationState,
 )
-from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core import prng, trace
 from metadrive_ped_torch.core.device import resolve_device
 from metadrive_ped_torch.core.logger import get_logger
 from metadrive_ped_torch.core.scenario_structs import ScenarioScene, ScenarioSimState
@@ -573,311 +573,327 @@ class ScenarioEnv(VectorEnvLoop):
             traj_heading = polyline.heading_at(pts, npts, long, s=arcl)
             npc_pose = None
 
-        # --- side detector rays vs continuous lines (state_obs.py:77-86) ---
-        n_side = vc["side_detector"]["num_lasers"]
-        if n_side > 0:
-            dist = vc["side_detector"]["distance"]
-            side, _ = raycast.detector_clouds(
-                ego.pos, ego.heading, state.sidx, (n_side, dist), (0, dist), *self._line_table)
-        else:
-            # side detector off -> normalized lateral distances to the SDC
-            # route's left/right borders (state_obs.py:90-98 fallback with
-            # TrajectoryNavigation: lane = the width-2 idm route,
-            # parse_object_state.py:19; lateral range = 2*width,
-            # trajectory_navigation.py:148-152; normalized by
-            # (MAX_LANE_NUM+1)*MAX_LANE_WIDTH = 18, base_map.py:38-40)
-            route_w = 2.0
-            lat_to_left = lat + route_w / 2.0
-            lat_to_right = 2.0 * route_w - lat_to_left
-            side = torch.stack([clip01(lat_to_left / 18.0), clip01(lat_to_right / 18.0)], dim=-1)
+        with trace.stage("observe.features", self.device):
+            # --- side detector rays vs continuous lines (state_obs.py:77-86) ---
+            n_side = vc["side_detector"]["num_lasers"]
+            if n_side > 0:
+                dist = vc["side_detector"]["distance"]
+                side, _ = raycast.detector_clouds(
+                    ego.pos, ego.heading, state.sidx, (n_side, dist), (0, dist), *self._line_table)
+            else:
+                # side detector off -> normalized lateral distances to the SDC
+                # route's left/right borders (state_obs.py:90-98 fallback with
+                # TrajectoryNavigation: lane = the width-2 idm route,
+                # parse_object_state.py:19; lateral range = 2*width,
+                # trajectory_navigation.py:148-152; normalized by
+                # (MAX_LANE_NUM+1)*MAX_LANE_WIDTH = 18, base_map.py:38-40)
+                route_w = 2.0
+                lat_to_left = lat + route_w / 2.0
+                lat_to_right = 2.0 * route_w - lat_to_left
+                side = torch.stack([clip01(lat_to_left / 18.0), clip01(lat_to_right / 18.0)],
+                                   dim=-1)
 
-        # --- ego core (state_obs.py:100-151) -------------------------------
-        hv = heading_vec(ego.heading)
-        traj_rhs = rhs_vec(traj_heading)
-        hdiff = torch.clamp((hv * traj_rhs).sum(-1), -1.0, 1.0) / 2 + 0.5
-        speed_kmh = ego.speed * 3.6
-        f_speed = clip01((speed_kmh + 1) / (ego.params.max_speed_kmh + 1))
-        f_steer = clip01((ego.steering / OBS_MAX_STEERING + 1) / 2)
-        f_a0 = clip01((ego.current_action[:, 0] + 1) / 2)
-        f_a1 = clip01((ego.current_action[:, 1] + 1) / 2)
-        # yaw rate: arccos(clip(<h_t, h_t-1>, 0, 1)) / 0.1, written as
-        # min(|wrap(dh)|, pi/2) / 0.1, the same function without the
-        # arccos's loss of precision near 1 (as obs/state_obs.py does)
-        dh = torch.abs(wrap_to_pi(ego.heading - ego.last_heading))
-        f_yaw = clip01(torch.clamp(dh, max=math.pi / 2) / 0.1)
-        f_lat = clip01((lat * 2 / 4.5 + 1) / 2)
-        core = torch.stack([hdiff, f_speed, f_steer, f_a0, f_a1, f_yaw, f_lat], dim=-1)
+            # --- ego core (state_obs.py:100-151) -------------------------------
+            hv = heading_vec(ego.heading)
+            traj_rhs = rhs_vec(traj_heading)
+            hdiff = torch.clamp((hv * traj_rhs).sum(-1), -1.0, 1.0) / 2 + 0.5
+            speed_kmh = ego.speed * 3.6
+            f_speed = clip01((speed_kmh + 1) / (ego.params.max_speed_kmh + 1))
+            f_steer = clip01((ego.steering / OBS_MAX_STEERING + 1) / 2)
+            f_a0 = clip01((ego.current_action[:, 0] + 1) / 2)
+            f_a1 = clip01((ego.current_action[:, 1] + 1) / 2)
+            # yaw rate: arccos(clip(<h_t, h_t-1>, 0, 1)) / 0.1, written as
+            # min(|wrap(dh)|, pi/2) / 0.1, the same function without the
+            # arccos's loss of precision near 1 (as obs/state_obs.py does)
+            dh = torch.abs(wrap_to_pi(ego.heading - ego.last_heading))
+            f_yaw = clip01(torch.clamp(dh, max=math.pi / 2) / 0.1)
+            f_lat = clip01((lat * 2 / 4.5 + 1) / 2)
+            core = torch.stack([hdiff, f_speed, f_steer, f_a0, f_a1, f_yaw, f_lat], dim=-1)
 
-        # --- trajectory navi (trajectory_navigation.py:106-146) ------------
-        next_idx = torch.clamp((long / DISCRETE_LEN).to(torch.int32) + 1, min=0)
-        ks = torch.arange(1, NUM_WAY_POINT, dtype=torch.int32, device=self.device)
-        total = polyline.total_length(pts, npts, s=arcl)
-        ck_long = torch.minimum((next_idx[:, None] + ks[None, :]).float() * DISCRETE_LEN,
-                                total[:, None])
-        ck_pos = polyline.position(pts[:, None], npts[:, None], ck_long, s=arcl[:, None])
-        dirv = ck_pos - ego.pos[:, None, :]
-        dn = torch.sqrt((dirv ** 2).sum(-1))
-        scale = torch.where(dn > TRAJ_NAVI_POINT_DIST,
-                            TRAJ_NAVI_POINT_DIST / torch.clamp(dn, min=1e-6), 1.0)
-        dirv = dirv * scale[..., None]
-        # LEFT-positive lateral (TrajectoryNavigation._get_info_for_checkpoint
-        # -> convert_to_local_coordinates, base_vehicle.py:986-988)
-        rv = -rhs_vec(ego.heading)
-        in_h = (dirv * hv[:, None, :]).sum(-1)
-        in_r = (dirv * rv[:, None, :]).sum(-1)
-        wp = torch.stack(
-            [clip01((in_h / TRAJ_NAVI_POINT_DIST + 1) / 2),
-             clip01((in_r / TRAJ_NAVI_POINT_DIST + 1) / 2)], dim=-1,
-        ).reshape(E, (NUM_WAY_POINT - 1) * 2)
-        tail = torch.stack([
-            clip01((lat / cfg["max_lateral_dist"] + 1) / 2),
-            clip01((wrap_to_pi(traj_heading - ego.heading) / math.pi + 1) / 2),
-        ], dim=-1)
-        navi = torch.cat([wp, tail, torch.zeros((E, 2), device=self.device)], dim=-1)  # 22
+            # --- trajectory navi (trajectory_navigation.py:106-146) ------------
+            next_idx = torch.clamp((long / DISCRETE_LEN).to(torch.int32) + 1, min=0)
+            ks = torch.arange(1, NUM_WAY_POINT, dtype=torch.int32, device=self.device)
+            total = polyline.total_length(pts, npts, s=arcl)
+            ck_long = torch.minimum((next_idx[:, None] + ks[None, :]).float() * DISCRETE_LEN,
+                                    total[:, None])
+            ck_pos = polyline.position(pts[:, None], npts[:, None], ck_long, s=arcl[:, None])
+            dirv = ck_pos - ego.pos[:, None, :]
+            dn = torch.sqrt((dirv ** 2).sum(-1))
+            scale = torch.where(dn > TRAJ_NAVI_POINT_DIST,
+                                TRAJ_NAVI_POINT_DIST / torch.clamp(dn, min=1e-6), 1.0)
+            dirv = dirv * scale[..., None]
+            # LEFT-positive lateral (TrajectoryNavigation._get_info_for_checkpoint
+            # -> convert_to_local_coordinates, base_vehicle.py:986-988)
+            rv = -rhs_vec(ego.heading)
+            in_h = (dirv * hv[:, None, :]).sum(-1)
+            in_r = (dirv * rv[:, None, :]).sum(-1)
+            wp = torch.stack(
+                [clip01((in_h / TRAJ_NAVI_POINT_DIST + 1) / 2),
+                 clip01((in_r / TRAJ_NAVI_POINT_DIST + 1) / 2)], dim=-1,
+            ).reshape(E, (NUM_WAY_POINT - 1) * 2)
+            tail = torch.stack([
+                clip01((lat / cfg["max_lateral_dist"] + 1) / 2),
+                clip01((wrap_to_pi(traj_heading - ego.heading) / math.pi + 1) / 2),
+            ], dim=-1)
+            navi = torch.cat([wp, tail, torch.zeros((E, 2), device=self.device)], dim=-1)  # 22
 
         # --- lidar vs replayed bodies --------------------------------------
         parts = [side, core, navi]
         if vc["lidar"]["num_lasers"] > 0:
-            npc_pos, npc_heading, npc_active = (
-                npc_pose if npc_pose is not None else self._npc_pose(state))
-            parts.append(raycast.lidar_cloud(
-                ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"],
-                npc_pos, npc_heading, scene.trk_len[s], scene.trk_wid[s], npc_active,
-            ))
+            with trace.stage("observe.lidar", self.device):
+                npc_pos, npc_heading, npc_active = (
+                    npc_pose if npc_pose is not None else self._npc_pose(state))
+                cloud = raycast.lidar_cloud(
+                    ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"],
+                    npc_pos, npc_heading, scene.trk_len[s], scene.trk_wid[s], npc_active,
+                )
+            parts.append(cloud)
         return torch.cat(parts, dim=-1)
 
     def _advance(self, state, actions, prev_obs=None):
+        """The step up to the observation, as `BaseVectorEnv._advance`; its
+        stages are device spans of core/trace.py."""
         cfg = self.config
         scene = self.scene
         E = self.num_envs
         dev = self.device
-        actions = torch.clamp(torch.nan_to_num(actions, nan=0.0, posinf=1.0, neginf=-1.0),
-                              -1.0, 1.0)
-        # fault injection (set_break_down, base_vehicle.py:939-941)
-        actions = torch.where(state.ego.break_down[:, None], 0.0, actions)
+        with trace.stage("advance.actions", dev):
+            actions = torch.clamp(torch.nan_to_num(actions, nan=0.0, posinf=1.0, neginf=-1.0),
+                                  -1.0, 1.0)
+            # fault injection (set_break_down, base_vehicle.py:939-941)
+            actions = torch.where(state.ego.break_down[:, None], 0.0, actions)
 
-        ego = state.ego
-        ego = ego.replace(
-            last_pos=ego.pos, last_heading=ego.heading,
-            last_action=ego.current_action, current_action=actions,
-            steering=actions[:, 0], throttle=actions[:, 1],
-            past_pos=torch.cat([ego.past_pos[:, 1:], ego.pos[:, None]], dim=1),
-        )
-        if cfg["replay_ego"]:
-            # force-set the recorded sdc state (ReplayEgoCarPolicy semantics)
-            T = scene.sdc_track_pos.shape[1]
-            flat = (state.sidx * T + torch.clamp(state.step_count + 1, 0, T - 1)).long()
-            pos = scene.sdc_pos_t[flat]
-            heading = scene.sdc_heading_t[flat]
-            speed = torch.sqrt(((pos - ego.pos) ** 2).sum(-1)) / 0.1
-            vel_dir = torch.zeros_like(speed)
-        else:
-            pos, heading, speed, vel_dir = dynamics.step_vehicle(
-                ego.pos, ego.heading, ego.speed, ego.vel_dir, ego.steering, ego.throttle,
-                ego.params, dt=cfg["physics_world_step_size"], substeps=cfg["decision_repeat"],
-                enable_reverse=cfg["vehicle_config"]["enable_reverse"],
+        with trace.stage("advance.dynamics", dev):
+            ego = state.ego
+            ego = ego.replace(
+                last_pos=ego.pos, last_heading=ego.heading,
+                last_action=ego.current_action, current_action=actions,
+                steering=actions[:, 0], throttle=actions[:, 1],
+                past_pos=torch.cat([ego.past_pos[:, 1:], ego.pos[:, None]], dim=1),
             )
-        ego = ego.replace(pos=pos, heading=heading, speed=speed, vel_dir=vel_dir)
+            if cfg["replay_ego"]:
+                # force-set the recorded sdc state (ReplayEgoCarPolicy semantics)
+                T = scene.sdc_track_pos.shape[1]
+                flat = (state.sidx * T + torch.clamp(state.step_count + 1, 0, T - 1)).long()
+                pos = scene.sdc_pos_t[flat]
+                heading = scene.sdc_heading_t[flat]
+                speed = torch.sqrt(((pos - ego.pos) ** 2).sum(-1)) / 0.1
+                vel_dir = torch.zeros_like(speed)
+            else:
+                pos, heading, speed, vel_dir = dynamics.step_vehicle(
+                    ego.pos, ego.heading, ego.speed, ego.vel_dir, ego.steering, ego.throttle,
+                    ego.params, dt=cfg["physics_world_step_size"], substeps=cfg["decision_repeat"],
+                    enable_reverse=cfg["vehicle_config"]["enable_reverse"],
+                )
+            ego = ego.replace(pos=pos, heading=heading, speed=speed, vel_dir=vel_dir)
 
-        if cfg["reactive_traffic"]:
-            state = self._step_npc_reactive(state, ego)
-        state = state.replace(step_count=state.step_count + 1, ego=ego)
-        s = state.sidx.long()
+        with trace.stage("advance.traffic", dev):
+            if cfg["reactive_traffic"]:
+                state = self._step_npc_reactive(state, ego)
+            state = state.replace(step_count=state.step_count + 1, ego=ego)
+            s = state.sidx.long()
 
-        # contacts
-        npc_pos, npc_heading, npc_active = self._npc_pose(state)
-        hits = collision.obb_obb_overlap(
-            ego.pos[:, None, :], ego.heading[:, None],
-            ego.params.length[:, None], ego.params.width[:, None],
-            npc_pos, npc_heading, scene.trk_len[s], scene.trk_wid[s],
-        ) & npc_active
-        is_ped = scene.trk_kind[s] != 0
-        crash_v = (hits & ~is_ped).any(dim=1)
-        crash_h = (hits & is_ped).any(dim=1)
-
-        # rigid contact response, ego side only: replayed/reactive tracks are
-        # kinematic bodies (ReplayTrafficParticipantPolicy force-sets their
-        # pose, replay_policy.py:10-68), so the ego takes the full
-        # minimum-translation push and loses its closing velocity — the
-        # Bullet behavior when a dynamic chassis meets a kinematic body
-        # (engine_core.py:350-352). replay_ego force-sets the ego too.
-        if cfg["contact_response"] and not cfg["replay_ego"]:
-            depth, normal = collision.obb_obb_mtv(
+        with trace.stage("advance.contacts", dev):
+            # contacts
+            npc_pos, npc_heading, npc_active = self._npc_pose(state)
+            hits = collision.obb_obb_overlap(
                 ego.pos[:, None, :], ego.heading[:, None],
                 ego.params.length[:, None], ego.params.width[:, None],
                 npc_pos, npc_heading, scene.trk_len[s], scene.trk_wid[s],
+            ) & npc_active
+            is_ped = scene.trk_kind[s] != 0
+            crash_v = (hits & ~is_ped).any(dim=1)
+            crash_h = (hits & is_ped).any(dim=1)
+
+            # rigid contact response, ego side only: replayed/reactive tracks are
+            # kinematic bodies (ReplayTrafficParticipantPolicy force-sets their
+            # pose, replay_policy.py:10-68), so the ego takes the full
+            # minimum-translation push and loses its closing velocity — the
+            # Bullet behavior when a dynamic chassis meets a kinematic body
+            # (engine_core.py:350-352). replay_ego force-sets the ego too.
+            if cfg["contact_response"] and not cfg["replay_ego"]:
+                depth, normal = collision.obb_obb_mtv(
+                    ego.pos[:, None, :], ego.heading[:, None],
+                    ego.params.length[:, None], ego.params.width[:, None],
+                    npc_pos, npc_heading, scene.trk_len[s], scene.trk_wid[s],
+                )
+                contact = hits & ~is_ped
+                push = (torch.where(contact, torch.clamp(depth, min=0.0), 0.0)[..., None]
+                        * normal).sum(dim=1)
+                mag = torch.sqrt((push ** 2).sum(-1, keepdim=True))
+                push = push * torch.clamp(1.0 / torch.clamp(mag, min=1.0), max=1.0)
+                scale = collision.contact_speed_scale(ego.speed, ego.heading + ego.vel_dir,
+                                                      normal, contact)
+                ego = ego.replace(pos=ego.pos + push, speed=ego.speed * scale)
+                state = state.replace(ego=ego)
+
+        with trace.stage("advance.navigation", dev):
+            # trajectory localization
+            pts = scene.sdc_pts[s]
+            npts = scene.sdc_npts[s]
+            arcl = scene.sdc_arclen[s]
+            long, lat = polyline.local_coordinates(pts, npts, ego.pos, s=arcl)
+            traj_heading = polyline.heading_at(pts, npts, long, s=arcl)
+            total = polyline.total_length(pts, npts, s=arcl)
+            route_completion = long / torch.clamp(total, min=1e-3)
+            state = state.replace(last_long=state.cur_long, cur_long=long, cur_lat=lat)
+            seg_flags = collision.vehicle_segment_flags(
+                ego.pos, ego.heading, ego.params.length, ego.params.width,
+                *scene.seg_points(state.sidx),
+                scene.seg_type[s], scene.seg_halfwidth[s], scene.seg_valid[s],
+                (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK),
             )
-            contact = hits & ~is_ped
-            push = (torch.where(contact, torch.clamp(depth, min=0.0), 0.0)[..., None]
-                    * normal).sum(dim=1)
-            mag = torch.sqrt((push ** 2).sum(-1, keepdim=True))
-            push = push * torch.clamp(1.0 / torch.clamp(mag, min=1.0), max=1.0)
-            scale = collision.contact_speed_scale(ego.speed, ego.heading + ego.vel_dir,
-                                                  normal, contact)
-            ego = ego.replace(pos=ego.pos + push, speed=ego.speed * scale)
+            # traffic light ahead (BaseTrafficLight contact,
+            # base_vehicle.py:720-733): red/yellow within the stop region
+            lp = scene.light_pos[s]                                  # [E,LG,2]
+            LT = scene.light_status.shape[2]
+            lflat = (state.sidx * LT + torch.clamp(state.step_count, 0, LT - 1)).long()
+            lstat = scene.light_status_t[lflat]                       # [E,LG]
+            ldist = torch.sqrt(((lp - ego.pos[:, None, :]) ** 2).sum(-1))
+            near = (ldist < 4.0) & scene.light_valid[s]
+            on_red = (near & (lstat == 3)).any(dim=1)
+            on_yellow_light = (near & (lstat == 2)).any(dim=1)
+
+            # lane-network localization (need_lane_localization; the reference
+            # builds ScenarioLanes from map_features and ray-localizes the ego
+            # against them, scenario_map.py:9, edge_network_navigation.py:159):
+            # on_lane = the ego centre sits inside some map lane's band.
+            # Computed only when something consumes it: with
+            # relax_out_of_road_done (the default) out-of-road is the lateral
+            # band test and on_lane would be a dead flag
+            on_lane = torch.ones(E, dtype=torch.bool, device=dev)
+            use_lanes = (self._has_lanes and cfg["need_lane_localization"]
+                         and not cfg["relax_out_of_road_done"])
+            if use_lanes:
+                inside = polyline.in_band(
+                    scene.lane_pts[s], scene.lane_npts[s], ego.pos[:, None, :],
+                    scene.lane_width[s] / 2,
+                ) & scene.lane_valid[s]                                # [E,LN]
+                on_lane = inside.any(dim=1)
+
+            ego = ego.replace(
+                crash_vehicle=crash_v, crash_human=crash_h,
+                on_yellow_line=seg_flags[SEG_YELLOW_LINE],
+                on_white_line=seg_flags[SEG_WHITE_LINE],
+                crash_sidewalk=seg_flags[SEG_SIDEWALK],
+                on_lane=on_lane,
+            )
             state = state.replace(ego=ego)
 
-        # trajectory localization
-        pts = scene.sdc_pts[s]
-        npts = scene.sdc_npts[s]
-        arcl = scene.sdc_arclen[s]
-        long, lat = polyline.local_coordinates(pts, npts, ego.pos, s=arcl)
-        traj_heading = polyline.heading_at(pts, npts, long, s=arcl)
-        total = polyline.total_length(pts, npts, s=arcl)
-        route_completion = long / torch.clamp(total, min=1e-3)
-        state = state.replace(last_long=state.cur_long, cur_long=long, cur_lat=lat)
-        seg_flags = collision.vehicle_segment_flags(
-            ego.pos, ego.heading, ego.params.length, ego.params.width,
-            *scene.seg_points(state.sidx),
-            scene.seg_type[s], scene.seg_halfwidth[s], scene.seg_valid[s],
-            (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK),
-        )
-        # traffic light ahead (BaseTrafficLight contact,
-        # base_vehicle.py:720-733): red/yellow within the stop region
-        lp = scene.light_pos[s]                                  # [E,LG,2]
-        LT = scene.light_status.shape[2]
-        lflat = (state.sidx * LT + torch.clamp(state.step_count, 0, LT - 1)).long()
-        lstat = scene.light_status_t[lflat]                       # [E,LG]
-        ldist = torch.sqrt(((lp - ego.pos[:, None, :]) ** 2).sum(-1))
-        near = (ldist < 4.0) & scene.light_valid[s]
-        on_red = (near & (lstat == 3)).any(dim=1)
-        on_yellow_light = (near & (lstat == 2)).any(dim=1)
-
-        # lane-network localization (need_lane_localization; the reference
-        # builds ScenarioLanes from map_features and ray-localizes the ego
-        # against them, scenario_map.py:9, edge_network_navigation.py:159):
-        # on_lane = the ego centre sits inside some map lane's band.
-        # Computed only when something consumes it: with
-        # relax_out_of_road_done (the default) out-of-road is the lateral
-        # band test and on_lane would be a dead flag
-        on_lane = torch.ones(E, dtype=torch.bool, device=dev)
-        use_lanes = (self._has_lanes and cfg["need_lane_localization"]
-                     and not cfg["relax_out_of_road_done"])
-        if use_lanes:
-            inside = polyline.in_band(
-                scene.lane_pts[s], scene.lane_npts[s], ego.pos[:, None, :],
-                scene.lane_width[s] / 2,
-            ) & scene.lane_valid[s]                                # [E,LN]
-            on_lane = inside.any(dim=1)
-
-        ego = ego.replace(
-            crash_vehicle=crash_v, crash_human=crash_h,
-            on_yellow_line=seg_flags[SEG_YELLOW_LINE],
-            on_white_line=seg_flags[SEG_WHITE_LINE],
-            crash_sidewalk=seg_flags[SEG_SIDEWALK],
-            on_lane=on_lane,
-        )
-        state = state.replace(ego=ego)
-
-        # done (scenario_env.py:128-196)
-        arrive = (route_completion > 0.95) | (total < 2.0)
-        if cfg["relax_out_of_road_done"]:
-            out_of_road = torch.abs(lat) > cfg["max_lateral_dist"]
-        else:
-            out_of_road = ego.crash_sidewalk | ego.on_yellow_line | ego.on_white_line
-            if use_lanes:
-                # leaving every map lane is out-of-road (lane membership)
-                out_of_road = out_of_road | ~on_lane
-        out_of_road = out_of_road | (route_completion < -0.1)
-        terminated = arrive | out_of_road
-        if cfg["crash_vehicle_done"]:
-            terminated = terminated | crash_v
-        if cfg["crash_human_done"]:
-            terminated = terminated | crash_h
-        horizon = cfg["horizon"]
-        truncated = state.step_count >= scene.scenario_len[s]
-        if horizon is not None:
-            truncated = truncated | (state.step_count >= horizon)
-        if cfg["truncate_as_terminate"]:
-            terminated = terminated | truncated
-
-        # reward (scenario_env.py:216-292)
-        reward = cfg["driving_reward"] * (long - state.last_long)
-        lateral_penalty = -torch.abs(lat) / cfg["max_lateral_dist"] * cfg["lateral_penalty"]
-        heading_diff = torch.abs(wrap_to_pi(ego.heading - traj_heading)) / math.pi
-        heading_penalty = -heading_diff * cfg["heading_penalty"]
-        allowed_steering = 1.0 / torch.clamp(ego.speed, min=1e-2)
-        overflow = torch.clamp(allowed_steering - torch.abs(actions[:, 0]), max=0.0)
-        steering_penalty = overflow * cfg["steering_range_penalty"]
-        reward = reward + lateral_penalty + heading_penalty + steering_penalty
-        if cfg["no_negative_reward"]:
-            reward = torch.clamp(reward, min=0.0)
-        on_line = ego.on_yellow_line | ego.on_white_line | ego.crash_sidewalk
-        reward = torch.where(crash_v, -cfg["crash_vehicle_penalty"], reward)
-        reward = torch.where(crash_h, -cfg["crash_human_penalty"], reward)
-        reward = torch.where(on_line, -cfg["on_lane_line_penalty"], reward)
-        step_reward = reward
-        reward = torch.where(arrive, cfg["success_reward"], reward)
-        reward = torch.where(~arrive & out_of_road, -cfg["out_of_road_penalty"], reward)
-
-        # cost (scenario_env.py:198-214; additive)
-        cost = (torch.where(out_of_road, cfg["out_of_road_cost"], 0.0)
-                + torch.where(crash_v, cfg["crash_vehicle_cost"], 0.0)
-                + torch.where(crash_h, cfg["crash_human_cost"], 0.0))
-
-        episode_reward = state.episode_reward + reward
-        episode_cost = state.episode_cost + cost
-        state = state.replace(episode_reward=episode_reward, episode_cost=episode_cost)
-
-        done = terminated | truncated
-        start = cfg["start_scenario_index"]
-        info = {
-            "arrive_dest": arrive, "out_of_road": out_of_road,
-            "crash_vehicle": crash_v, "crash_human": crash_h,
-            "crash": crash_v | crash_h | ego.crash_sidewalk,
-            "cost": cost, "total_cost": episode_cost, "step_reward": step_reward,
-            "route_completion": route_completion,
-            "velocity": ego.speed, "max_step": truncated,
-            "on_red_light": on_red, "on_yellow_light": on_yellow_light,
-            "episode_reward": episode_reward, "episode_length": state.step_count,
-            "env_seed": state.sidx + start,
-            # reference step_info extras (scenario_env.py:276-283):
-            # navigation.reference_trajectory.length, lateral_now, seed
-            "track_length": total,
-            "lateral_dist": lat,
-            "scenario_index": state.sidx + start,
-            "carsize": torch.stack([ego.params.width, ego.params.length], dim=-1),
-            TerminationState.SUCCESS: arrive,
-            TerminationState.OUT_OF_ROAD: out_of_road,
-            TerminationState.CRASH_VEHICLE: crash_v,
-            TerminationState.CRASH_HUMAN: crash_h,
-        }
-
-        npc_pose = (npc_pos, npc_heading, npc_active)
-        if cfg["auto_reset"]:
-            new_keys = prng.split(state.rng, 2)                   # [E,2,2]
-            step_rng, reset_rng = new_keys[:, 0], new_keys[:, 1]
-            cap = state.scenario_cap  # a tensor: a curriculum level-up swaps it
-            if cfg["sequential_seed"]:
-                new_sidx = (state.sidx + 1) % cap
+            # done (scenario_env.py:128-196)
+            arrive = (route_completion > 0.95) | (total < 2.0)
+            if cfg["relax_out_of_road_done"]:
+                out_of_road = torch.abs(lat) > cfg["max_lateral_dist"]
             else:
-                new_sidx = prng.randint(step_rng, (), 0, cap)
-            fresh = self._spawn(reset_rng, new_sidx)
-            # the 0-d act-batch phase is global and not reset per env
-            state = tree_map(
-                lambda new, old: old if old.dim() == 0 else torch.where(
-                    done.reshape(done.shape + (1,) * (old.dim() - 1)), new, old),
-                fresh, state.replace(rng=step_rng),
-            )
-            state = state.replace(scenario_cap=cap)
-            # refresh the cached obs inputs for re-spawned rows: spawn sits at
-            # arc length 0 of the new sdc trajectory; tracks are at t=0
-            s = state.sidx.long()
-            T0 = scene.trk_pos.shape[2]
-            d1 = done[:, None]
-            long = torch.where(done, 0.0, long)
-            lat = torch.where(done, 0.0, lat)
-            traj_heading = torch.where(done, scene.sdc_start_heading[s], traj_heading)
-            npc_pose = (
-                torch.where(d1[..., None], scene.trk_pos_t[s * T0], npc_pos),
-                torch.where(d1, scene.trk_heading_t[s * T0], npc_heading),
-                torch.where(d1, scene.trk_valid_t[s * T0], npc_active),
-            )
+                out_of_road = ego.crash_sidewalk | ego.on_yellow_line | ego.on_white_line
+                if use_lanes:
+                    # leaving every map lane is out-of-road (lane membership)
+                    out_of_road = out_of_road | ~on_lane
+            out_of_road = out_of_road | (route_completion < -0.1)
+            terminated = arrive | out_of_road
+            if cfg["crash_vehicle_done"]:
+                terminated = terminated | crash_v
+            if cfg["crash_human_done"]:
+                terminated = terminated | crash_h
+            horizon = cfg["horizon"]
+            truncated = state.step_count >= scene.scenario_len[s]
+            if horizon is not None:
+                truncated = truncated | (state.step_count >= horizon)
+            if cfg["truncate_as_terminate"]:
+                terminated = terminated | truncated
 
-        # advance the global act-batch phase. Because it is global, a freshly
-        # auto-reset env's IDM cars refresh at another offset relative to
-        # its episode step than the reference's per-car round-robin; every
-        # car still refreshes once per IDM_ACT_BATCH_SIZE steps
-        state = state.replace(phase=(state.phase + 1) % IDM_ACT_BATCH_SIZE)
+            # reward (scenario_env.py:216-292)
+            reward = cfg["driving_reward"] * (long - state.last_long)
+            lateral_penalty = -torch.abs(lat) / cfg["max_lateral_dist"] * cfg["lateral_penalty"]
+            heading_diff = torch.abs(wrap_to_pi(ego.heading - traj_heading)) / math.pi
+            heading_penalty = -heading_diff * cfg["heading_penalty"]
+            allowed_steering = 1.0 / torch.clamp(ego.speed, min=1e-2)
+            overflow = torch.clamp(allowed_steering - torch.abs(actions[:, 0]), max=0.0)
+            steering_penalty = overflow * cfg["steering_range_penalty"]
+            reward = reward + lateral_penalty + heading_penalty + steering_penalty
+            if cfg["no_negative_reward"]:
+                reward = torch.clamp(reward, min=0.0)
+            on_line = ego.on_yellow_line | ego.on_white_line | ego.crash_sidewalk
+            reward = torch.where(crash_v, -cfg["crash_vehicle_penalty"], reward)
+            reward = torch.where(crash_h, -cfg["crash_human_penalty"], reward)
+            reward = torch.where(on_line, -cfg["on_lane_line_penalty"], reward)
+            step_reward = reward
+            reward = torch.where(arrive, cfg["success_reward"], reward)
+            reward = torch.where(~arrive & out_of_road, -cfg["out_of_road_penalty"], reward)
 
+            # cost (scenario_env.py:198-214; additive)
+            cost = (torch.where(out_of_road, cfg["out_of_road_cost"], 0.0)
+                    + torch.where(crash_v, cfg["crash_vehicle_cost"], 0.0)
+                    + torch.where(crash_h, cfg["crash_human_cost"], 0.0))
+
+            episode_reward = state.episode_reward + reward
+            episode_cost = state.episode_cost + cost
+            state = state.replace(episode_reward=episode_reward, episode_cost=episode_cost)
+
+            done = terminated | truncated
+            start = cfg["start_scenario_index"]
+            info = {
+                "arrive_dest": arrive, "out_of_road": out_of_road,
+                "crash_vehicle": crash_v, "crash_human": crash_h,
+                "crash": crash_v | crash_h | ego.crash_sidewalk,
+                "cost": cost, "total_cost": episode_cost, "step_reward": step_reward,
+                "route_completion": route_completion,
+                "velocity": ego.speed, "max_step": truncated,
+                "on_red_light": on_red, "on_yellow_light": on_yellow_light,
+                "episode_reward": episode_reward, "episode_length": state.step_count,
+                "env_seed": state.sidx + start,
+                # reference step_info extras (scenario_env.py:276-283):
+                # navigation.reference_trajectory.length, lateral_now, seed
+                "track_length": total,
+                "lateral_dist": lat,
+                "scenario_index": state.sidx + start,
+                "carsize": torch.stack([ego.params.width, ego.params.length], dim=-1),
+                TerminationState.SUCCESS: arrive,
+                TerminationState.OUT_OF_ROAD: out_of_road,
+                TerminationState.CRASH_VEHICLE: crash_v,
+                TerminationState.CRASH_HUMAN: crash_h,
+            }
+
+            npc_pose = (npc_pos, npc_heading, npc_active)
+        with trace.stage("advance.reset", dev):
+            if cfg["auto_reset"]:
+                new_keys = prng.split(state.rng, 2)                   # [E,2,2]
+                step_rng, reset_rng = new_keys[:, 0], new_keys[:, 1]
+                cap = state.scenario_cap  # a tensor: a curriculum level-up swaps it
+                if cfg["sequential_seed"]:
+                    new_sidx = (state.sidx + 1) % cap
+                else:
+                    new_sidx = prng.randint(step_rng, (), 0, cap)
+                fresh = self._spawn(reset_rng, new_sidx)
+                # the 0-d act-batch phase is global and not reset per env
+                state = tree_map(
+                    lambda new, old: old if old.dim() == 0 else torch.where(
+                        done.reshape(done.shape + (1,) * (old.dim() - 1)), new, old),
+                    fresh, state.replace(rng=step_rng),
+                )
+                state = state.replace(scenario_cap=cap)
+                # refresh the cached obs inputs for re-spawned rows: spawn sits at
+                # arc length 0 of the new sdc trajectory; tracks are at t=0
+                s = state.sidx.long()
+                T0 = scene.trk_pos.shape[2]
+                d1 = done[:, None]
+                long = torch.where(done, 0.0, long)
+                lat = torch.where(done, 0.0, lat)
+                traj_heading = torch.where(done, scene.sdc_start_heading[s], traj_heading)
+                npc_pose = (
+                    torch.where(d1[..., None], scene.trk_pos_t[s * T0], npc_pos),
+                    torch.where(d1, scene.trk_heading_t[s * T0], npc_heading),
+                    torch.where(d1, scene.trk_valid_t[s * T0], npc_active),
+                )
+
+            # advance the global act-batch phase. Because it is global, a freshly
+            # auto-reset env's IDM cars refresh at another offset relative to
+            # its episode step than the reference's per-car round-robin; every
+            # car still refreshes once per IDM_ACT_BATCH_SIZE steps
+            state = state.replace(phase=(state.phase + 1) % IDM_ACT_BATCH_SIZE)
+
+        if cfg["auto_reset"]:
+            # the spawn computes every row and keeps the done ones
+            trace.count("reset.rows", done, dev)
+            trace.count("reset.computed", done.shape[0], dev)
         return state, ((long, lat, traj_heading, npc_pose),), reward, terminated, truncated, info

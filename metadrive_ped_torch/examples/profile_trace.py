@@ -1,5 +1,9 @@
 """Device-op profiling: trace one rollout with torch.profiler and print the
-per-kernel time table (on the CPU, the per-operator table).
+per-kernel time table (on the CPU, the per-operator table), then run one
+more with the port's tracer on (core/trace.py) and print its stage table:
+each device span of the step (replay, advance and its stages, observe and
+its stages, the write-back; on the card from the stamps inside the
+replayed graph), each host span, and the useful-work counters.
 
     python -m metadrive_ped_torch.examples.profile_trace --config pg
     python -m metadrive_ped_torch.examples.profile_trace --config scenario_waymo --num-envs 512
@@ -15,6 +19,7 @@ import time
 
 import torch
 
+from metadrive_ped_torch.core import trace
 from metadrive_ped_torch.examples import example_device, force_cpu_flag
 
 CONFIGS = ("pg", "marl", "scenario", "scenario_waymo", "scenario_replay")
@@ -88,6 +93,12 @@ def main(argv=None):
     sort_by = "self_cuda_time_total" if cuda else "self_cpu_time_total"
     table = prof.key_averages().table(sort_by=sort_by, row_limit=25)
     print(table)
+
+    # the stage table: the first traced call captures the stamped graph,
+    # the second is read (on the card in the slower phase that follows a
+    # capture, PERF.md §2)
+    recs = trace.read(lambda: env.rollout(args.num_steps, actions=acts, collect=()))
+    print(trace.table(recs, args.num_steps))
     return table
 
 

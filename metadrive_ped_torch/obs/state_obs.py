@@ -25,7 +25,7 @@ import math
 import torch
 
 from metadrive_ped_torch.constants import OBS_MAX_STEERING
-from metadrive_ped_torch.core import prng
+from metadrive_ped_torch.core import prng, trace
 from metadrive_ped_torch.ops import localization, raycast
 from metadrive_ped_torch.ops.gather import nearest_k_onehot
 from metadrive_ped_torch.ops.math_ops import clip01, heading_vec, wrap_to_pi
@@ -149,52 +149,55 @@ def observe(scene, sidx, ego, targets, ego_long, ego_lat, num_lasers=240, lidar_
     SideDetector (ContinuousLaneLine mask, distance_detector.py:194) and
     LaneLineDetector (both line masks, :209), both from one launch;
     ``line_table`` = (table, counts) of `ray_segment.build_line_table`."""
-    core = ego_core(scene, sidx, ego)
-    pieces = []
-    if random_agent_model:
-        pieces.append(torch.stack(
-            [clip01(ego.params.length / MAX_VEHICLE_LENGTH),
-             clip01(ego.params.width / MAX_VEHICLE_WIDTH)], dim=-1))
-    if side_lasers > 0 or lane_line_lasers > 0:
-        side_cloud, lane_cloud = raycast.detector_clouds(
-            ego.pos, ego.heading, sidx, (side_lasers, side_distance),
-            (lane_line_lasers, lane_line_distance), *line_table)
-    if side_lasers > 0:
-        pieces.append(side_cloud)
-    else:
-        left, right = localization.boundary_distances(
-            scene, sidx, ego.slot, ego.route_idx, ego.pos)
-        pieces.append(torch.stack(
-            [clip01(left / TOTAL_SIDE_WIDTH), clip01(right / TOTAL_SIDE_WIDTH)], dim=-1))
-    pieces.append(core)
-    if lane_line_lasers > 0:
-        pieces.append(lane_cloud)
-    else:
-        pieces.append(clip01((ego_lat * 2 / MAX_LANE_WIDTH + 1) / 2)[:, None])
-    ego_state = torch.cat(pieces, dim=-1)
+    device = ego.pos.device
+    with trace.stage("observe.features", device):
+        core = ego_core(scene, sidx, ego)
+        pieces = []
+        if random_agent_model:
+            pieces.append(torch.stack(
+                [clip01(ego.params.length / MAX_VEHICLE_LENGTH),
+                 clip01(ego.params.width / MAX_VEHICLE_WIDTH)], dim=-1))
+        if side_lasers > 0 or lane_line_lasers > 0:
+            side_cloud, lane_cloud = raycast.detector_clouds(
+                ego.pos, ego.heading, sidx, (side_lasers, side_distance),
+                (lane_line_lasers, lane_line_distance), *line_table)
+        if side_lasers > 0:
+            pieces.append(side_cloud)
+        else:
+            left, right = localization.boundary_distances(
+                scene, sidx, ego.slot, ego.route_idx, ego.pos)
+            pieces.append(torch.stack(
+                [clip01(left / TOTAL_SIDE_WIDTH), clip01(right / TOTAL_SIDE_WIDTH)], dim=-1))
+        pieces.append(core)
+        if lane_line_lasers > 0:
+            pieces.append(lane_cloud)
+        else:
+            pieces.append(clip01((ego_lat * 2 / MAX_LANE_WIDTH + 1) / 2)[:, None])
+        ego_state = torch.cat(pieces, dim=-1)
 
-    navi = localization.navi_info(scene, sidx, ego.slot, ego.route_idx, ego.pos, ego.heading)
+        navi = localization.navi_info(scene, sidx, ego.slot, ego.route_idx, ego.pos, ego.heading)
 
-    parts = [ego_state, navi]
-    if num_others > 0:
-        parts.append(surrounding_vehicles_info(ego, npc, num_others, lidar_distance))
+        parts = [ego_state, navi]
+        if num_others > 0:
+            parts.append(surrounding_vehicles_info(ego, npc, num_others, lidar_distance))
     # lidar-off configs skip the cloud entirely, like the reference's
     # LidarStateObservation (state_obs.py:210-232)
     if num_lasers > 0:
-        t_pos, t_heading, t_len, t_wid, t_active = targets
-        cloud = raycast.lidar_cloud(
-            ego.pos, ego.heading, num_lasers, lidar_distance,
-            t_pos, t_heading, t_len, t_wid, t_active, radius=t_radius,
-            circle_slice=circle_slice,
-        )
-        if (gaussian_noise > 0 or dropout_prob > 0) and rng is not None:
-            k_noise, k_drop = prng.split(rng).unbind(-2)
-            at = row_offset * num_lasers
-            if gaussian_noise > 0:
-                cloud = torch.clamp(
-                    cloud + gaussian_noise * prng.normal(k_noise, cloud.shape, at), 0.0, 1.0)
-            if dropout_prob > 0:
-                cloud = torch.where(prng.uniform(k_drop, cloud.shape, offset=at) < dropout_prob,
-                                    0.0, cloud)
+        with trace.stage("observe.lidar", device):
+            t_pos, t_heading, t_len, t_wid, t_active = targets
+            cloud = raycast.lidar_cloud(
+                ego.pos, ego.heading, num_lasers, lidar_distance,
+                t_pos, t_heading, t_len, t_wid, t_active, radius=t_radius,
+                circle_slice=circle_slice,
+            )
+            if (gaussian_noise > 0 or dropout_prob > 0) and rng is not None:
+                k_noise, k_drop = prng.split(rng).unbind(-2)
+                at = row_offset * num_lasers
+                if gaussian_noise > 0:
+                    cloud = torch.clamp(
+                        cloud + gaussian_noise * prng.normal(k_noise, cloud.shape, at), 0.0, 1.0)
+                if dropout_prob > 0:
+                    cloud = torch.where(
+                        prng.uniform(k_drop, cloud.shape, offset=at) < dropout_prob, 0.0, cloud)
         parts.append(cloud)
     return torch.cat(parts, dim=-1)

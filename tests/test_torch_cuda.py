@@ -6,6 +6,7 @@ tests/conftest.py (which imports jax):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import collections
 import os
 import sys
 
@@ -384,3 +385,167 @@ def _np_leaves(tree):
     if dataclasses.is_dataclass(tree):
         return [x for f in dataclasses.fields(tree) for x in _np_leaves(getattr(tree, f.name))]
     return [tree]
+
+
+# ---- the tracer's stamps on the card (metadrive_ped_torch/core/trace.py) ----
+
+@pytest.fixture
+def tracer(cuda):
+    from metadrive_ped_torch.core import trace
+    trace.disable()
+    trace.clear()
+    yield trace
+    trace.disable()
+    trace.clear()
+
+
+def _mixed():
+    from metadrive_ped_torch import MixedTrafficEnv
+    return MixedTrafficEnv(dict(num_envs=64, map="SCS", num_scenarios=2, traffic_density=0.2,
+                                rl_agent_ratio=0.5, horizon=20), device="cuda")
+
+
+@pytest.mark.parametrize("make", [_pg_detectors, _mixed], ids=["pg_detectors", "mixed"])
+def test_stamped_replay_equals_unstamped(tracer, make):
+    """A graph captured with tracing on (stamps and counters inside) steps
+    the env bit for bit as the graph captured with it off."""
+    runs = []
+    for on in (False, True):
+        env = make()
+        act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+        env.reset(seed=0)
+        if on:
+            tracer.enable()
+        outs = [env.rollout(n, actions=act, collect=("obs", "reward", "terminated", "truncated",
+                                                     "state"))[0] for n in (5, 9)]
+        outs.append([_clone(env.step(act)) for _ in range(3)])
+        tracer.disable()
+        runs.append((outs, _clone((env._state, env._last_obs))))
+    assert _equal_trees(runs[0], runs[1])
+    assert tracer.records()["counters"]["reset.computed"] == 64 * 17
+
+
+def _clone(tree):
+    from metadrive_ped_torch.core.structs import map_tensors
+    return map_tensors(torch.clone, tree)
+
+
+def test_tracing_on_recaptures_once_and_off_restores_the_unstamped_key(tracer):
+    env = _pg_detectors()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    env.reset(seed=0)
+    g = lambda: env._graphs  # noqa: E731
+    env.rollout(2, actions=act)
+    env.step(act)
+    assert g().captures == 2 and g()._rollout.key[-1] is False and g()._step.key[-1] is False
+    tracer.enable()
+    env.rollout(2, actions=act)
+    env.rollout(2, actions=act)
+    env.step(act)
+    env.step(act)
+    assert g().captures == 4 and g()._rollout.key[-1] is True and g()._step.key[-1] is True
+    tracer.disable()
+    env.rollout(2, actions=act)
+    env.step(act)
+    assert g().captures == 6 and g()._rollout.key[-1] is False and g()._step.key[-1] is False
+    assert all(counter is not tracer for counter, _ in g()._rollout.tally)
+
+
+def test_launches_count_the_stamps_of_each_replay(tracer):
+    """The stamp kernel counts its launches through core.launches: each
+    replay adds the capture's tally, the same number the ring holds; the
+    detector kernel's count stays one a replay."""
+    from metadrive_ped_torch.ops import ray_segment as rs
+    env = _pg_detectors()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    env.reset(seed=0)
+    tracer.enable()
+    env.rollout(2, actions=act)
+    tracer.clear()
+    stamps0, kernel0 = tracer.launches, rs.launches
+    env.rollout(5, actions=act)
+    stamps, kernels = tracer.launches - stamps0, rs.launches - kernel0
+    recs = tracer.records()
+    per_replay = env._graphs._rollout.tally[tracer, 0]
+    device_spans = [s for s in recs["spans"] if s["clock"] == "device"]
+    assert per_replay == 2 * len(device_spans[1:]) // 5
+    assert stamps == 5 * per_replay + 2 == 2 * len(device_spans)
+    assert kernels == 5 and recs["lost"] == 0
+
+
+def test_spans_share_the_profilers_host_clock(tracer):
+    """Over 20 replayed steps under torch.profiler, each a `step` call then
+    a synchronisation inside a host event of its own: one offset maps the
+    tracer's clock onto the profiler's host events (each host span of the
+    tracer lies inside the profiler's event of the same name, opened before
+    it and closed after it, within 10 us), and through it every `replay`
+    span of the stamps lies between the profiler's start of its call's
+    graph launch and the end of the synchronisation after it, within 10
+    us. The stamp kernels appear by name among the profiler's device
+    events; their times there are not compared: the profiler's records of
+    graph kernels hold single kernels tens to hundreds of us off the rest,
+    even in a fresh process's first session, and later sessions drift,
+    place kernels before their own launch and drop records (PERF.md)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    env = _pg_detectors()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    env.reset(seed=0)
+    tracer.enable()
+    env.step(act)
+    torch.cuda.synchronize()
+    tracer.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            env.step(act)
+            with record_function("test.sync"):
+                torch.cuda.synchronize()
+    spans = tracer.records()["spans"]
+    host = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.name].append((e.time_range.start * 1e3, e.time_range.end * 1e3))
+    lo, hi = [], []
+    for name in ("env.step", "step.actions", "step.load", "step.replay", "step.clone",
+                 "step.frame_obs", "step.outputs"):
+        ours = sorted((s["start_ns"], s["end_ns"]) for s in spans if s["name"] == name)
+        theirs = sorted(host[name])
+        assert len(ours) == len(theirs) == 20, (name, len(ours), len(theirs))
+        lo += [a - c for (a, _), (c, _) in zip(theirs, ours)]
+        hi += [b - d for (_, b), (_, d) in zip(theirs, ours)]
+    assert max(lo) <= min(hi) + 10_000, (max(lo), min(hi))
+    offset = (max(lo) + min(hi)) / 2
+    launches, syncs = sorted(host["step.replay"]), sorted(host["test.sync"])
+    replays = sorted((s["start_ns"] + offset, s["end_ns"] + offset)
+                     for s in spans if s["name"] == "replay")
+    assert len(replays) == len(syncs) == 20
+    for (launch, _), (_, synced), (start, end) in zip(launches, syncs, replays):
+        assert launch - 10_000 <= start < end <= synced + 10_000, (start - launch, synced - end)
+    assert any("trace_stamp" in e.name and e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def test_device_spans_sit_inside_their_host_calls(tracer):
+    """The tracer's own shared clock: over 20 replayed steps, each a `step`
+    call then a synchronisation, every `replay` span (globaltimer mapped
+    onto perf_counter_ns) starts after its call's graph launch began and
+    ends before the synchronisation returned, within 10 us."""
+    import time
+    env = _pg_detectors()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    env.reset(seed=0)
+    tracer.enable()
+    env.step(act)
+    torch.cuda.synchronize()
+    tracer.clear()
+    ends = []
+    for _ in range(20):
+        env.step(act)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter_ns())
+    spans = tracer.records()["spans"]
+    launches = [s["start_ns"] for s in spans if s["name"] == "step.replay"]
+    replays = [s for s in spans if s["name"] == "replay"]
+    assert len(launches) == len(replays) == 20
+    for launch, end, r in zip(launches, ends, replays):
+        assert launch - 10_000 <= r["start_ns"] < r["end_ns"] <= end + 10_000, (
+            r["start_ns"] - launch, end - r["end_ns"])

@@ -26,17 +26,22 @@ warms it up, then measures:
   kernel times over the same number of steps;
 - kernel launches per step, and host API calls per step (the profiler's
   CUDA runtime and driver calls: kernel launches, graph launches, copies);
-- device ms, wall ms, launches and peak device memory of each stage of
-  the step, each run alone on the step's state (the stages sum to about
-  the whole step; --mixed splits the expert traffic into the expert
-  observation, the per-NPC lidar and the MLP; --image splits the camera
-  into its ray directions, ground hits, box hits and the rest of the
-  frame, with the frame's graph replayed as one more stage, and the BEV
-  into its texture samples, stamps and stack ring; --sharded has no
-  stages: its line carries the unsharded env's replayed step of the same
-  call beside the sharded one).
+- ``spans``: the device ms a step of each stage span of the port's
+  tracer (core/trace.py: replay, advance and its stages, observe and its
+  stages, the write-back, the expert) inside the replayed step, from the
+  stamps in its graph, and the useful-work counters a step (read right
+  after the stamped graph's capture, in the slower phase that follows a
+  capture: PERF.md §2);
+- device ms, wall ms, launches and peak device memory of the finer stages
+  no span covers, each run alone on the step's state (--mixed splits the
+  expert traffic into the expert observation, the per-NPC lidar and the
+  MLP; --image splits the camera into its ray directions, ground hits,
+  box hits and the rest of the frame, with the frame's graph replayed as
+  one more stage, and the BEV into its texture samples, stamps and stack
+  ring; --sharded has no stages: its line carries the unsharded env's
+  replayed step of the same call beside the sharded one).
 
-These numbers are of the eager step (`_step_eager`, `_rollout_eager`;
+The numbers other than ``spans`` are of the eager step (`_step_eager`, `_rollout_eager`;
 with --sharded, the shards' eager loop), dispatched op by op as before
 CUDA graphs. With --graph each env's line also carries ``replayed``: wall
 ms, device-busy ms, busy share, kernel launches and host API calls of the
@@ -123,7 +128,7 @@ def main():
     from chip_smoke import MAIN_PATH
     from metadrive_ped_torch import MetaDriveEnv
     from metadrive_ped_torch.constants import SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE
-    from metadrive_ped_torch.ops import collision, dynamics, idm, localization, raycast
+    from metadrive_ped_torch.ops import collision, localization, raycast
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -146,18 +151,17 @@ def main():
     row = step_profile(card, "pg_detectors", E, lambda: env._step_eager(act), args.steps,
                        args.table, replayed=args.graph and (lambda: env.step(act)))
 
-    # the stages of _step_impl, each alone on the current state
+    replayed_step = lambda: env.rollout(1, actions=act, collect=())  # noqa: E731
+    row.update(spans=span_stages(replayed_step, args.steps))
+    # the finer stages of _step_impl, each alone on the current state
     st, scene, cfg = env._state, env.scene, env.config
     vc = cfg["vehicle_config"]
     ego, s = st.ego, st.sidx.long()
-    targets, radius = env._lidar_targets(st)
+    targets, _ = env._lidar_targets(st)
     styp, svalid = scene.seg_type[s], scene.seg_valid[s]
     side, lane = vc["side_detector"], vc["lane_line_detector"]
     zeros = torch.zeros(E, device="cuda")
     stages = {
-        "ego dynamics": lambda: dynamics.step_vehicle(
-            ego.pos, ego.heading, ego.speed, ego.vel_dir, ego.steering, ego.throttle, ego.params),
-        "traffic (IDM, 3 gap searches)": lambda: idm.step_npcs(scene, st.sidx, st.npc, ego),
         "lidar targets + OBB contact flags": lambda: collision.obb_obb_overlap(
             ego.pos[:, None, :], ego.heading[:, None], ego.params.length[:, None],
             ego.params.width[:, None], *env._lidar_targets(st)[0][:4]),
@@ -168,14 +172,9 @@ def main():
         "boundary-segment flags": lambda: collision.vehicle_segment_flags(
             ego.pos, ego.heading, ego.params.length, ego.params.width, *scene.seg_points(st.sidx),
             styp, scene.seg_halfwidth[s], svalid, (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK)),
-        "lidar cloud (240 rays x OBBs)": lambda: raycast.lidar_cloud(
-            ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"], *targets,
-            radius=radius),
         "side + lane-line clouds (fans + one kernel launch)": lambda: raycast.detector_clouds(
             ego.pos, ego.heading, st.sidx, (side["num_lasers"], side["distance"]),
             (lane["num_lasers"], lane["distance"]), *env._line_table),
-        "observation (whole)": lambda: env._observe(st, zeros, zeros),
-        "auto-reset spawn (threefry + gathers)": lambda: env._spawn(st.rng, st.sidx),
         "reward/cost/done": lambda: env.done_function(st, zeros > 0, zeros > 0),
     }
     print(json.dumps(dict(card=card, num_envs=E, steps=args.steps, **row,
@@ -219,6 +218,19 @@ def _profile_calls(card, name, E, step, steps, table):
                 launches_per_step=launches, host_api_calls_per_step=api_calls,
                 host_api_calls_top=api_top,
                 launch_bound_hint_us_per_launch=wall_ms * 1e3 / launches if launches else None)
+
+
+def span_stages(step, steps):
+    """Device ms a step of each of the tracer's device spans over ``steps``
+    replayed calls of step() (one step a call), and its counters a step:
+    tracing on, one call that captures the stamped graph, then the read
+    calls."""
+    from metadrive_ped_torch.core import trace
+    recs = trace.read(step, n=steps)
+    return dict(device_ms={name: sum(ms) / steps
+                           for (clock, name), ms in trace.durations(recs).items()
+                           if clock == "device"},
+                counters={k: v / steps for k, v in recs["counters"].items()})
 
 
 def stage_profile(stages):
@@ -270,10 +282,11 @@ def profile_scenarios(card, args):
                            args.steps, args.table,
                            replayed=args.graph and (lambda: env.rollout(1, actions=act,
                                                                         collect=())))
+        row.update(spans=span_stages(lambda: env.rollout(1, actions=act, collect=()),
+                                     args.steps))
         st, scene, vc = env._state, env.scene, env.config["vehicle_config"]
         ego, s = st.ego, st.sidx.long()
         pts, npts, arcl = scene.sdc_pts[s], scene.sdc_npts[s], scene.sdc_arclen[s]
-        npc_pos, npc_heading, npc_active = env._npc_pose(st)
         side = vc["side_detector"]
         stages = {
             "npc pose (replay rows + reactive overlay)": lambda: env._npc_pose(st),
@@ -285,21 +298,12 @@ def profile_scenarios(card, args):
                 ego.pos, ego.heading, ego.params.length, ego.params.width,
                 *scene.seg_points(st.sidx), scene.seg_type[s], scene.seg_halfwidth[s],
                 scene.seg_valid[s], (SEG_YELLOW_LINE, SEG_WHITE_LINE, SEG_SIDEWALK)),
-            "lidar cloud (rays x track OBBs)": lambda: raycast.lidar_cloud(
-                ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"],
-                npc_pos, npc_heading, scene.trk_len[s], scene.trk_wid[s], npc_active),
             "side cloud (fan + one kernel launch)": lambda: raycast.detector_clouds(
                 ego.pos, ego.heading, st.sidx, (side["num_lasers"], side["distance"]),
                 (0, side["distance"]), *env._line_table),
             "side fan alone": lambda: _fan_dirs(ego.heading, side["num_lasers"],
                                                 offset=math.pi / 2),
-            "observation (whole, cached localization)": lambda: env._observe(
-                st, cached=(st.cur_long, st.cur_lat, ego.heading,
-                            (npc_pos, npc_heading, npc_active))),
-            "auto-reset spawn (threefry split + gathers)": lambda: env._spawn(st.rng, st.sidx),
         }
-        if cfg.get("reactive_traffic"):
-            stages["reactive IDM (_step_npc_reactive)"] = lambda: env._step_npc_reactive(st, ego)
         row.update(stages=stage_profile(stages))
         print(json.dumps(dict(phase=name, card=card, num_envs=E, steps=args.steps, **row)),
               flush=True)
@@ -315,7 +319,6 @@ def profile_marl(card, args):
 
     import chip_smoke as cs
     from metadrive_ped_torch import MultiAgentRoundaboutEnv, MultiAgentTollgateEnv
-    from metadrive_ped_torch.ops import raycast
     for name, cls, cfg in (("marl", MultiAgentRoundaboutEnv, cs.MARL),
                            ("marl_40", MultiAgentRoundaboutEnv, cs.MARL_40),
                            ("marl_tollgate", MultiAgentTollgateEnv, cs.MARL_TOLLGATE)):
@@ -330,22 +333,18 @@ def profile_marl(card, args):
         for r in filter(None, (row, row.get("replayed"))):
             r["agent_steps_per_s"] = r.pop("env_steps_per_s")
             r["env_steps_per_s"] = r["agent_steps_per_s"] / env.agents_per_env
-        st, vc = env._state, env.config["vehicle_config"]
+        row.update(spans=span_stages(lambda: env.rollout(1, actions=act, collect=()),
+                                     args.steps))
+        st = env._state
         ego = st.ego
         targets, _ = env._lidar_targets(st)
-        zeros = torch.zeros(E, device="cuda")
         every = torch.ones(E, dtype=torch.bool, device="cuda")
         stages = {
             "respawn (region sweep, A-step slot claim, ego spawn)": lambda: env._respawn(st, every),
-            "delay-done and respawn (_post_done)": lambda: env._post_done(st, every, ~every),
             "other agents as targets": lambda: env._extra_vehicle_targets(st),
             "lidar targets": lambda: env._lidar_targets(st),
-            "lidar cloud (rays x targets)": lambda: raycast.lidar_cloud(
-                ego.pos, ego.heading, vc["lidar"]["num_lasers"], vc["lidar"]["distance"],
-                *targets),
             "contact response": lambda: env._resolve_contacts(
                 ego, st.npc, torch.ones_like(targets[4]), *targets[:4], env._freeze_mask(st)),
-            "observation (whole)": lambda: env._observe(st, zeros, zeros),
             "all-done reset mask": lambda: env._reset_mask(st, every),
         }
         print(json.dumps(dict(phase=name, card=card, num_envs=env.num_marl_envs,
@@ -366,7 +365,7 @@ def profile_mixed(card, args):
     import chip_smoke as cs
     from metadrive_ped_torch import MetaDriveEnv, MixedTrafficEnv
     from metadrive_ped_torch.core import prng
-    from metadrive_ped_torch.ops import idm, mixed_traffic
+    from metadrive_ped_torch.ops import mixed_traffic
     from metadrive_ped_torch.policies.expert import expert_action
     env = MixedTrafficEnv(cs.MIXED_TRAFFIC, device="cuda")
     E = env.num_envs
@@ -376,6 +375,7 @@ def profile_mixed(card, args):
                        lambda: env._rollout_eager(1, actions=act, collect=()), args.steps,
                        args.table,
                        replayed=args.graph and (lambda: env.rollout(1, actions=act, collect=())))
+    row.update(spans=span_stages(lambda: env.rollout(1, actions=act, collect=()), args.steps))
     st, scene, params = env._state, env.scene, env._npc_expert_params
     lidar = env.config["vehicle_config"]["lidar"]
     npc, ego = st.npc, st.ego
@@ -385,8 +385,6 @@ def profile_mixed(card, args):
                      mixed_traffic.nearest_vehicle_features(npc, cand, 4, lidar["distance"]),
                      mixed_traffic.npc_lidar(npc, cand, lidar["num_lasers"], lidar["distance"])],
                     dim=-1).reshape(E * N, -1)
-    actions, mask = env._expert_traffic(st.sidx, npc, ego)
-    zeros = torch.zeros(E, device="cuda")
     stages = {
         "expert obs: road frame + navigation": lambda: mixed_traffic.road_frame_features(
             scene, st.sidx, npc),
@@ -396,15 +394,10 @@ def profile_mixed(card, args):
         f"per-NPC lidar ({E * N} slots x {lidar['num_lasers']} rays x {N + 1} boxes)":
             lambda: mixed_traffic.npc_lidar(npc, cand, lidar["num_lasers"], lidar["distance"]),
         "expert MLP (275-256-256-4, float32)": lambda: expert_action(params, obs),
-        "expert_npc_actions (whole)": lambda: env._expert_traffic(st.sidx, npc, ego),
-        "traffic (IDM, expert slots blended)": lambda: idm.step_npcs(
-            scene, st.sidx, npc, ego, respawn_mode=False, expert_actions=actions,
-            expert_mask=mask),
-        "observation (whole)": lambda: env._observe(st, zeros, zeros),
     }
     print(json.dumps(dict(phase="mixed_traffic", card=card, num_envs=E, npc_slots=N,
                           steps=args.steps, **row, stages=stage_profile(stages))), flush=True)
-    del env, obs, actions
+    del env, obs
 
     env = MetaDriveEnv(cs.AI_PROTECT_NOISE, device="cuda")
     E = env.num_envs
@@ -412,17 +405,15 @@ def profile_mixed(card, args):
     env.reset(seed=0)
     row = step_profile(card, "ai_protect_noise", E, lambda: env._step_eager(act), args.steps,
                        args.table, replayed=args.graph and (lambda: env.step(act)))
-    st, prev = env._state, env._last_obs
-    zeros = torch.zeros(E, device="cuda")
+    row.update(spans=span_stages(lambda: env.step(act), args.steps))
+    st = env._state
     rays = (E, env.config["vehicle_config"]["lidar"]["num_lasers"])
 
     def noise_draws():
         k_noise, k_drop = prng.split(prng.fold_in(env._noise_key, st.step_count.sum())).unbind(-2)
         return prng.normal(k_noise, rays), prng.uniform(k_drop, rays)
     stages = {
-        "AI protector (expert on the previous obs)": lambda: env._ai_protect(st, act, prev),
         "lidar noise draws (key, normal, uniform)": noise_draws,
-        "observation with lidar noise (whole)": lambda: env._observe(st, zeros, zeros),
     }
     print(json.dumps(dict(phase="ai_protect_noise", card=card, num_envs=E, steps=args.steps,
                           **row, stages=stage_profile(stages))), flush=True)
@@ -447,6 +438,7 @@ def profile_image(card, args):
     env.reset(seed=0)
     row = step_profile(card, "image_obs", E, lambda: env._step_eager(act), args.steps,
                        args.table, replayed=args.graph and (lambda: env.step(act)))
+    row.update(spans=span_stages(lambda: env.step(act), args.steps))
     st, scene = env._state, env.scene
     modality, w, h = env._sensor_spec()
     cam = env.config["camera"]
@@ -463,7 +455,6 @@ def profile_image(card, args):
         return camera.pixel_rays(st.ego.heading[c], w, h, cam["fov"], cam["pitch"],
                                  cam["height"])
     dirs = [rays(c) for c in chunks]
-    zeros = torch.zeros(E, device="cuda")
     stages = {
         f"camera: pixel_rays ({len(chunks)} chunks of {rows} rows)": lambda: [
             rays(c) for c in chunks],
@@ -477,7 +468,6 @@ def profile_image(card, args):
         "camera (whole render, all modalities)": lambda: env._render_frame(st),
         "camera frame, replayed (its graph, core/graph.py)": env._graphs._frame.replay,
         "image obs (render + frame stack)": lambda: env._image_obs(env._last_obs),
-        "state observation (lidar + detector clouds)": lambda: env._observe(st, zeros, zeros),
     }
     print(json.dumps(dict(phase="image_obs", card=card, num_envs=E, camera=[modality, w, h],
                           chunk_rows=rows, chunks=len(chunks), steps=args.steps, **row,
@@ -490,6 +480,7 @@ def profile_image(card, args):
     env.reset(seed=0)
     row = step_profile(card, "top_down", E, lambda: env._step_eager(act), args.steps,
                        args.table, replayed=args.graph and (lambda: env.step(act)))
+    row.update(spans=span_stages(lambda: env.step(act), args.steps))
     st = env._state
     tex, org = env._map_textures()
     R, dist = env.config["resolution"], env.config["max_distance"]
@@ -513,7 +504,6 @@ def profile_image(card, args):
                                              ego.params.width[:, None], ones),
         f"BEV stamps: {K} past positions": lambda: stamp(ego.past_pos, torch.zeros_like(unit),
                                                          unit, unit, unit > 0),
-        "BEV (whole _observe)": lambda: env._observe(st, None, None),
         "stack ring (_assemble)": lambda: env._assemble(frame, none_done),
     }
     print(json.dumps(dict(phase="top_down", card=card, num_envs=E, steps=args.steps, **row,
