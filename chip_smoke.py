@@ -85,7 +85,10 @@ camera frame's graph too), and fails where one did not.
                  set_sync_debug_mode("error")), with the kernel launches a
                  step and device busy ms from the profiler, the expert
                  slots (in the packs, and active and released at the end)
-                 and peak device memory
+                 and peak device memory; the per-NPC lidar kernel launched
+                 once a step, then against its plain version on the last
+                 state (error 0.0, hits equal), with both times and the
+                 bound by operations (npc_lidar_vs_plain)
 16. ai_protect_noise  MetaDriveEnv at 8192 envs (map=3, 16 scenarios,
                  traffic 0.05) with the AI protector (save_level 0.5; the
                  expert's lidar 240 and 4 neighbours) and lidar noise
@@ -234,8 +237,9 @@ camera frame's graph too), and fails where one did not.
                  cannot be captured raising): every test passes, none skips
 
 The expert's products need float32 matmuls in full precision: the device
-phase asserts that TF32 is off. Then the kernels line (launches summed over
-the env phases 4, 6-8, 10-13, 15-16, 18-24, 28-35), the card's name and
+phase asserts that TF32 is off. Then the kernels line (the ray-segment
+kernel's launches summed over the env phases 4, 6-8, 10-13, 15-16, 18-24,
+28-35; the per-NPC lidar kernel's over the whole run), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
 raises and exits non-zero.
 """
@@ -394,6 +398,20 @@ PEAK_BYTES = 3.35e12
 # denom 3 (2 mul, 1 sub), |denom| guard 2, rel 2, t 4 (2 mul, sub, div),
 # u 4, hit tests 3, scale 1 (div), clip 2
 OPS_PER_PAIR = 21
+# float32 operations the per-NPC lidar needs (ops/raycast.py::ray_obb_fraction),
+# each an instruction of its own (-fmad=false): per (ray, box) pair that can
+# count, dx and dy in the box frame 6 (4 mul, 2 add), the |d| < 1e-9 guards
+# 6 (abs, compare, select), reciprocals 2, slab times 4 (mul), slab min /
+# max 6, tests 3 (tmax >= tmin, tmax >= 0, tmin >= 0), selects 2 (t, hit),
+# the min over boxes 1; per ray, its fan direction 6 (4 mul, 2 add), the
+# scale 1 and the clamp 2; per (slot, box), its origin in the box frame 8
+# (relx, rely, 4 mul, 2 add), the half sizes 2 and the slab numerators 4
+NPC_LIDAR_OPS_PER_PAIR = 30
+NPC_LIDAR_OPS_PER_RAY = 9
+NPC_LIDAR_OPS_PER_SLOT_BOX = 14
+# one-operation float32 instructions a second: 132 SMs x 128 lanes x 1.98
+# GHz (PEAK_FP32_OPS counts an FMA as two)
+PEAK_FP32_INSTR = 33.5e12
 
 
 def emit(**fields):
@@ -563,12 +581,86 @@ def to_device(case, device):
             t(table), t(counts))
 
 
-def kernel_device_ms(fn, iters):
-    """Device time (ms) of one launch of the detector-cloud kernel, from
-    torch.profiler's CUDA kernel records over ``iters`` calls of fn(). Where
-    a launch takes less device time than its wrapper takes of host time,
-    `time_ms` measures the wrapper; this does not. None if the profiler saw
-    no launch of the kernel."""
+# ---- inputs of the per-NPC lidar kernel -----------------------------------
+# A case is (pos [E,C,2], heading, length, width [E,C] float32, active [E,C]
+# bool, num_slots N, num_lasers R, distance), the arguments of
+# ops/npc_lidar.py::npc_lidar, with numpy arrays; the tests use the same
+# cases on the CPU.
+
+def random_npc_case(E, N, R, seed, p_active=0.7):
+    """E envs of N NPC slots and an ego (always active), C = N + 1 vehicles
+    of random heading and size in a 60 m square, so that most fans see
+    several bodies, and a slot's origin lies inside another body now and
+    then."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    C = N + 1
+    active = rng.rand(E, C) < p_active
+    active[:, N] = True
+    return (f32(rng.uniform(-30, 30, (E, C, 2))), f32(rng.uniform(-np.pi, np.pi, (E, C))),
+            f32(rng.uniform(3.5, 5.5, (E, C))), f32(rng.uniform(1.6, 2.4, (E, C))), active,
+            N, R, 50.0)
+
+
+def edge_npc_case(R=16):
+    """Exact geometry on the hit/miss boundary, on boxes of heading 0 (cos 1
+    and sin 0 exactly) seen by slot 0 of heading 0 (its ray 0 points along
+    +x exactly), one env each; 3 slots and the ego, the bodies not named
+    far from slot 0:
+    0: ray 0 parallel to box 1's x axis (dy = 0, the 1e-9 guard), a hit at 8;
+    1: slot 0 inside box 1, so every ray's t is its exit point;
+    2: slot 0 on box 1's corner (ox = hx, oy = -hy): ray 0 grazes it with
+       tmax == tmin == 0;
+    3: box 1 of zero length across ray 0: tmax == tmin == 5;
+    4: every body inactive, the ego too: every ray reads 1;
+    5: slot 1's heading NaN (its fan reads 1, and no fan sees it), box 2 at
+       a NaN position, the ego of infinite length (its slab times are
+       infinite, not NaN)."""
+    import numpy as np
+    E, N = 6, 3
+    pos = np.zeros((E, N + 1, 2), np.float32)
+    pos[:, 1:] = [(0.0, 200.0), (-150.0, -150.0), (150.0, -150.0)]
+    heading = np.zeros((E, N + 1), np.float32)
+    length = np.full((E, N + 1), 4.0, np.float32)
+    width = np.full((E, N + 1), 2.0, np.float32)
+    active = np.ones((E, N + 1), bool)
+    pos[0, 1] = (10.0, 0.5)
+    pos[1, 0], pos[1, 1] = (10.0, 0.0), (10.5, 0.2)
+    pos[2, 0], pos[2, 1] = (2.0, -1.0), (0.0, 0.0)
+    pos[3, 1], length[3, 1] = (5.0, 0.0), 0.0
+    active[4] = False
+    pos[5, 1], pos[5, 2] = (10.0, 0.0), (np.nan, 0.0)
+    heading[5, 1], length[5, 3] = np.nan, np.inf
+    pos[5, 3] = (0.0, 20.0)
+    return pos, heading, length, width, active, N, R, 50.0
+
+
+def npc_lidar_cases():
+    """The named cases of the npc_lidar kernel against its plain version."""
+    return {
+        "cell_like": lambda: random_npc_case(512, 13, 240, seed=1),
+        "ragged_E_N_R": lambda: random_npc_case(37, 5, 37, seed=2),
+        "N_1": lambda: random_npc_case(64, 1, 240, seed=3),
+        "mostly_inactive": lambda: random_npc_case(64, 13, 240, seed=4, p_active=0.15),
+        "C_above_tile": lambda: random_npc_case(3, 300, 64, seed=5),
+        "R_600": lambda: random_npc_case(5, 4, 600, seed=6),
+        "edges": edge_npc_case,
+    }
+
+
+def npc_to_device(case, device):
+    import torch
+    *arrays, N, R, distance = case
+    return (*(torch.as_tensor(a).to(device) for a in arrays), N, R, distance)
+
+
+def kernel_device_ms(fn, iters, kernel="detector_clouds_kernel"):
+    """Device time (ms) of one launch of the named kernel (by default the
+    detector-cloud kernel), from torch.profiler's CUDA kernel records over
+    ``iters`` calls of fn(). Where a launch takes less device time than its
+    wrapper takes of host time, `time_ms` measures the wrapper; this does
+    not. None if the profiler saw no launch of the kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -577,7 +669,7 @@ def kernel_device_ms(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    records = [e for e in prof.key_averages() if "detector_clouds_kernel" in e.key]
+    records = [e for e in prof.key_averages() if kernel in e.key]
     count = sum(e.count for e in records)
     return sum(e.self_device_time_total for e in records) / 1e3 / count if count else None
 
@@ -637,6 +729,62 @@ def kernel_case(name, args, iters):
                bound_by=bound_by, library_ms=None)
     emit(phase="kernel_vs_plain", **row)
     return row
+
+
+def npc_lidar_bound(args):
+    """Least time (ms) of one npc_lidar call on the card, and what sets it,
+    with the (ray, box) pairs that can count: the candidates read once and
+    the cloud written once, against the operations the cloud needs (the
+    NPC_LIDAR_OPS_* counts) at PEAK_FP32_INSTR. A pair can count where its
+    box is active and not the slot itself: each of the E*N slots, active
+    or not, casts its R rays against the active boxes of its env but its
+    own."""
+    active, N, R = args[4:7]
+    E, C = active.shape
+    boxes = active.sum(1)
+    pairs = R * int((boxes * N - active[:, :N].sum(1)).sum())
+    bytes_moved = E * C * (8 + 3 * 4 + 1) + 4 * E * N * R
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    ops = (NPC_LIDAR_OPS_PER_PAIR * pairs + NPC_LIDAR_OPS_PER_RAY * E * N * R
+           + NPC_LIDAR_OPS_PER_SLOT_BOX * E * N * C)
+    t_ops = ops / PEAK_FP32_INSTR * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"), pairs
+
+
+def npc_lidar_case(name, args, iters):
+    """The per-NPC lidar kernel against its plain version on one case: max
+    abs error (0.0 required: the kernel rounds as the plain chain does),
+    hits (out < 1) of each, and both times beside the bound."""
+    import torch
+
+    from metadrive_ped_torch.ops import npc_lidar as nl
+    out = nl.npc_lidar(*args)
+    plain = nl.npc_lidar_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max()) if out.numel() else 0.0
+    hits, plain_hits = int((out < 1).sum()), int((plain < 1).sum())
+    if not (err == 0.0 and hits == plain_hits):
+        raise AssertionError(f"{name}: npc_lidar kernel differs from the plain version by "
+                             f"{err}; hits {hits} against {plain_hits}")
+    ms = time_ms(lambda: nl.npc_lidar(*args), iters)
+    device_ms = kernel_device_ms(lambda: nl.npc_lidar(*args), iters, kernel="npc_lidar_kernel")
+    plain_ms = time_ms(lambda: nl.npc_lidar_plain(*args), max(2, iters // 20), warmup=1)
+    (bound_ms, bound_by), pairs = npc_lidar_bound(args)
+    E, C = args[4].shape
+    row = dict(case=name, E=E, N=args[5], R=args[6], C=C, pairs=pairs, max_abs_err=err, tol=0.0,
+               hits=hits, plain_hits=plain_hits, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    emit(phase="npc_lidar_vs_plain", **row)
+    return row
+
+
+def npc_lidar_args(env):
+    """The npc_lidar arguments of a MixedTrafficEnv's expert traffic at its
+    current state."""
+    from metadrive_ped_torch.ops import mixed_traffic
+    st, lidar = env._state, env.config["vehicle_config"]["lidar"]
+    cand = mixed_traffic.vehicle_candidates(st.npc, st.ego)
+    return (*cand[:5], st.npc.lane.shape[1], lidar["num_lasers"], lidar["distance"])
 
 
 def scenario_kernel_args(env):
@@ -943,16 +1091,23 @@ def step_launches(env, act, steps=2):
 
 
 def drive_mixed(card):
-    """MixedTrafficEnv at the main path's width: the kernel against its
-    plain version on the env's line table, then `drive`."""
+    """MixedTrafficEnv at the main path's width: the detector kernel against
+    its plain version on the env's line table, then `drive` (one per-NPC
+    lidar launch a step), then the per-NPC lidar kernel against its plain
+    version on the state `drive` leaves (past auto-resets). Returns the two
+    kernels' rows and the phase's line."""
     import torch
 
     from metadrive_ped_torch import MixedTrafficEnv
+    from metadrive_ped_torch.ops import npc_lidar as nl
     env = MixedTrafficEnv(MIXED_TRAFFIC, device=DEVICE)
     E = env.num_envs
     env.reset(seed=0)
     row = kernel_case("mixed_traffic", detector_args(env), iters=20)
+    nl.launches = 0
     outs, seconds, launches, _, graph = drive(env, ("terminated", "truncated"))
+    npc_launches = nl.launches
+    npc_row = npc_lidar_case("mixed_traffic", npc_lidar_args(env), iters=20)
     st = env._state
     expert = env.scene.npc_expert[st.sidx.long()]
     expert_active = int((expert & st.npc.active & st.npc.released).sum())
@@ -969,6 +1124,7 @@ def drive_mixed(card):
                  expert_slots_active=expert_active,
                  launches_per_step=per_step, device_busy_ms_per_step=busy_ms,
                  ray_segment_launches=launches, expected_launches=STEPS + 1,
+                 npc_lidar_launches=npc_launches, expected_npc_lidar_launches=STEPS,
                  host_sync_checked_step=2, peak_memory_bytes=torch.cuda.max_memory_allocated(),
                  graph=graph)
     emit(**phase)
@@ -977,9 +1133,12 @@ def drive_mixed(card):
     if launches != STEPS + 1:
         raise AssertionError(f"mixed_traffic: ray-segment kernel launched {launches} times, "
                              f"expected {STEPS + 1}")
+    if npc_launches != STEPS:
+        raise AssertionError(f"mixed_traffic: npc_lidar kernel launched {npc_launches} times, "
+                             f"expected {STEPS}")
     if phase["expert_slots_active"] == 0:
         raise AssertionError("mixed_traffic: no expert-driven NPC is on the road")
-    return row, phase
+    return row, npc_row, phase
 
 
 def drive_ai_protect(card):
@@ -2199,7 +2358,7 @@ def main():
             raise AssertionError(f"{name}: the card and the CPU disagree")
 
     # ---- expert traffic, the AI protector, lidar noise ---------------------
-    mixed_row, mixed_phase = drive_mixed(card)
+    mixed_row, npc_row, mixed_phase = drive_mixed(card)
     rows.append(mixed_row)
     phase_launches["mixed_traffic"] = mixed_phase["ray_segment_launches"]
     phase_launches["ai_protect_noise"] = drive_ai_protect(card)["ray_segment_launches"]
@@ -2274,6 +2433,13 @@ def main():
         # per env step at the main path's shapes: one launch for both clouds
         ms=main_row["ms"], plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=None,
+    ), dict(
+        name="npc_lidar", route="cuda", source="metadrive_ped_torch/csrc/npc_lidar.cu",
+        replaces=None, launches=mixed_phase["npc_lidar_launches"],
+        max_abs_err=npc_row["max_abs_err"],
+        # per env step of mixed_traffic: one launch for every slot's fan
+        ms=npc_row["ms"], plain_ms=npc_row["plain_ms"], bound_ms=npc_row["bound_ms"],
+        bound_by=npc_row["bound_by"], library_ms=None,
     )]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 NATIVE = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
 
-KERNELS = ("ray_segment", "trace_stamp")
+KERNELS = ("ray_segment", "trace_stamp", "npc_lidar")
 # no --use_fast_math anywhere; -fmad=false keeps a*b - c*d as two rounded
 # products, like the plain torch versions
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

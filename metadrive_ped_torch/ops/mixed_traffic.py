@@ -20,12 +20,14 @@ lidar sees vehicles only.
 
 Every slot runs the MLP, and `idm.step_npcs` blends the expert slots in by
 the mask: no shape depends on the data. The per-NPC lidar is the heavy
-part: [E*N, rays, N+1] ray-box tests.
+part: [E*N, rays, N+1] ray-box tests, one launch of a hand-written kernel
+on the card (ops/npc_lidar.py).
 """
 import torch
 
 from metadrive_ped_torch.constants import LANE_CIRCULAR
-from metadrive_ped_torch.ops import lane_geom, localization, raycast
+from metadrive_ped_torch.ops import lane_geom, localization
+from metadrive_ped_torch.ops import npc_lidar as npc_lidar_op
 from metadrive_ped_torch.ops.gather import nearest_k_index
 from metadrive_ped_torch.ops.math_ops import clip01, heading_vec, rhs_vec
 from metadrive_ped_torch.policies.expert import expert_action
@@ -120,17 +122,9 @@ def nearest_vehicle_features(npc, cand, num_others, distance):
 
 def npc_lidar(npc, cand, num_lasers, distance):
     """The lidar cloud [E,N,num_lasers] of every NPC slot against the other
-    vehicles: one ray fan per slot over [E*N, num_lasers, C] ray-box tests."""
-    E, N = npc.lane.shape
-    c_pos, c_heading, c_len, c_wid, c_active = cand[:5]
-    C = c_pos.shape[1]
-    rep = lambda a: a.repeat_interleave(N, dim=0)                        # [E,C] -> [E*N,C]
-    not_self = ~torch.eye(N, C, dtype=torch.bool, device=c_pos.device)
-    active = rep(c_active) & not_self.repeat(E, 1)
-    return raycast.lidar_cloud(
-        npc.pos.reshape(E * N, 2), npc.heading.reshape(E * N), num_lasers, distance,
-        rep(c_pos), rep(c_heading), rep(c_len), rep(c_wid), active,
-    ).reshape(E, N, num_lasers)
+    vehicles: one ray fan per slot over [E*N, num_lasers, C] ray-box tests,
+    one launch of the per-NPC lidar kernel on the card (ops/npc_lidar.py)."""
+    return npc_lidar_op.npc_lidar(*cand[:5], npc.lane.shape[1], num_lasers, distance)
 
 
 def expert_npc_actions(scene, sidx, npc, ego, params, num_lasers=240, distance=50.0,

@@ -549,3 +549,111 @@ def test_device_spans_sit_inside_their_host_calls(tracer):
     for launch, end, r in zip(launches, ends, replays):
         assert launch - 10_000 <= r["start_ns"] < r["end_ns"] <= end + 10_000, (
             r["start_ns"] - launch, end - r["end_ns"])
+
+
+# ---- the per-NPC lidar kernel (ops/npc_lidar.py, csrc/npc_lidar.cu) --------
+
+NPC_LIDAR_CASES = chip_smoke.npc_lidar_cases()
+
+
+def _same_cloud(out, ref):
+    """The kernel's cloud is the plain chain's: the same shape, max abs
+    difference 0.0 and the same number of hit rays (some)."""
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) == 0.0
+    assert int((out < 1).sum()) == int((ref < 1).sum()) > 0
+
+
+@pytest.mark.parametrize("case", sorted(NPC_LIDAR_CASES))
+def test_npc_lidar_kernel_matches_plain(cuda, case):
+    """Bit-equal on random bodies (E*N and R ragged, N = 1, most bodies
+    inactive, more candidates than a shared-memory tile, more rays than a
+    block) and on the edge geometry of chip_smoke.edge_npc_case: rays
+    parallel to a box axis (the 1e-9 guard), an origin inside a box, grazing
+    hits with tmax == tmin, an env with every body inactive, NaN and
+    infinite inputs."""
+    from metadrive_ped_torch.ops import npc_lidar as nl
+    args = chip_smoke.npc_to_device(NPC_LIDAR_CASES[case](), cuda)
+    before = nl.launches
+    out = nl.npc_lidar(*args)
+    ref = nl.npc_lidar_plain(*args)
+    torch.cuda.synchronize()
+    assert nl.launches == before + 1
+    _same_cloud(out, ref)
+
+
+def test_npc_lidar_kernel_matches_plain_on_the_mixed_traffic_state(cuda):
+    """At the expert cell's width (8192 envs, traffic 0.1, half the slots on
+    the expert), on the state after 64 replayed steps with auto-resets."""
+    from metadrive_ped_torch import MixedTrafficEnv
+    from metadrive_ped_torch.ops import npc_lidar as nl
+    env = MixedTrafficEnv(chip_smoke.MIXED_TRAFFIC, device="cuda")
+    act = torch.tensor([0.0, 1.0], device="cuda").expand(env.num_envs, 2).contiguous()
+    env.reset(seed=0)
+    outs, _ = env.rollout(64, actions=act, collect=("terminated", "truncated"))
+    assert bool((outs["terminated"] | outs["truncated"]).any())
+    args = chip_smoke.npc_lidar_args(env)
+    out = nl.npc_lidar(*args)
+    ref = nl.npc_lidar_plain(*args)
+    torch.cuda.synchronize()
+    _same_cloud(out, ref)
+
+
+def test_npc_lidar_rejects_what_it_cannot_take(cuda):
+    from metadrive_ped_torch.ops import npc_lidar as nl
+    pos, heading, length, width, active, N, R, d = chip_smoke.npc_to_device(
+        chip_smoke.random_npc_case(4, 3, 16, seed=1), cuda)
+    C = N + 1
+    for bad in ((pos.double(), heading, length, width, active),
+                (pos, heading, length, width, active.float()),
+                (pos, heading, length[:, :-1].contiguous(), width, active),
+                (pos, heading.cpu(), length, width, active),
+                (pos.transpose(0, 1).contiguous().transpose(0, 1), heading, length, width, active),
+                (pos, heading.t().contiguous().t(), length, width, active)):
+        with pytest.raises(ValueError):
+            nl.npc_lidar(*bad, N, R, d)
+    with pytest.raises(ValueError):
+        nl.npc_lidar(pos, heading, length, width, active, C + 1, R, d)
+    with pytest.raises(ValueError):
+        nl.npc_lidar(pos, heading, length, width, active, N, R, 0.0)
+
+
+def test_npc_lidar_replay_equals_eager(cuda):
+    """A replayed MixedTrafficEnv rollout of 8 steps equals the eager one bit
+    for bit, and each step launches the per-NPC lidar kernel once."""
+    from metadrive_ped_torch.ops import npc_lidar as nl
+    env = _mixed()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    collect = ("obs", "reward", "terminated", "truncated", "state")
+    runs = []
+    for roll in (env._rollout_eager, env.rollout):
+        env.reset(seed=0)
+        nl.launches = 0
+        outs, _ = roll(8, actions=act, collect=collect)
+        runs.append((_clone(outs), nl.launches))
+    assert _equal_trees(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1] == 8
+    assert env._graphs.captures == 1 and env._graphs.replays == 8
+
+
+def test_npc_lidar_reciprocal_is_ieee(cuda, tmp_path):
+    """The kernel's reciprocal (csrc/npc_lidar.cu::rcp_rn, the fast path
+    without its range check) equals the IEEE 1.0f / x in every bit, for
+    every float x with 2^-126 <= |x| < 2^126: 4,227,858,432 values. The
+    checker (tests/csrc/npc_lidar_rcp_check.cu) includes the kernel's
+    source and builds here with the package's flags."""
+    import ctypes
+    import subprocess
+
+    from metadrive_ped_torch.core import cuda_build
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                       "npc_lidar_rcp_check.cu")
+    lib = str(tmp_path / "libnpc_lidar_rcp_check.so")
+    subprocess.run([cuda_build._nvcc(), *cuda_build._FLAGS, "-o", lib, src], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(lib).npc_lidar_rcp_mismatches
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    mismatches = torch.zeros(1, dtype=torch.int64, device="cuda")
+    assert fn(mismatches.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    assert int(mismatches) == 0

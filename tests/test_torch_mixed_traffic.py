@@ -2,7 +2,8 @@
 a multi-agent roundabout with rl_agent_ratio = 0.5 step for step, and the
 pieces alone on a stepped state: `mixed_traffic.expert_npc_actions` (the
 275-dim observation of every NPC slot, its per-NPC lidar and the expert
-MLP) and `idm.step_npcs` with expert actions and mask.
+MLP), the per-NPC lidar's plain version (ops/npc_lidar.py) and
+`idm.step_npcs` with expert actions and mask.
 
 Tolerances: the env runs those of tests/_torch_parity.py::check_run
 (obs, reward and float info 1e-4, flags and ints exact); the expert's
@@ -13,17 +14,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from _torch_parity import check_run, jax_tree, np_tree, run_pair, t, to_np, yaw_column
 
 import metadrive_ped_torch as T
 from metadrive_ped_torch.core.convert import state_from_numpy, state_to_numpy
 from metadrive_ped_torch.ops import idm as t_idm
 from metadrive_ped_torch.ops import mixed_traffic as t_mixed
+from metadrive_ped_torch.ops import npc_lidar as t_npc_lidar
+from metadrive_ped_torch.ops import raycast as t_raycast
 from metadrive_ped_tpu.core.structs import SimState as JaxSimState
 from metadrive_ped_tpu.envs.marl_envs import MultiAgentRoundaboutEnv as JaxRoundabout
 from metadrive_ped_tpu.envs.mixed_traffic_env import MixedTrafficEnv as JaxMixed
 from metadrive_ped_tpu.ops import idm as j_idm
 from metadrive_ped_tpu.ops import mixed_traffic as j_mixed
+from metadrive_ped_tpu.ops import raycast as j_raycast
 
 ATOL = 1e-4
 MIXED = dict(num_envs=4, map="SCS", num_scenarios=2, traffic_density=0.4, rl_agent_ratio=0.5,
@@ -78,6 +83,44 @@ def test_expert_npc_actions_against_jax(mixed, stepped):
     # the per-NPC lidar sees bodies: the ray fans are not all free
     cloud = t_mixed.npc_lidar(ts.npc, t_mixed.vehicle_candidates(ts.npc, ts.ego), 240, 50.0)
     assert float(cloud.min()) < 0.5
+
+
+def test_npc_lidar_plain_version_on_the_stepped_state(mixed, stepped, monkeypatch):
+    """On CPU tensors `mixed_traffic.npc_lidar` goes through
+    ops/npc_lidar.py's plain version. On the stepped state at 240 rays that
+    gives bit for bit what the `raycast.lidar_cloud` chain over the
+    repeated candidates gives, and the JAX package's per-NPC lidar
+    (metadrive_ped_tpu/ops/mixed_traffic.py, the same chain in jnp) within
+    ATOL."""
+    _, _, ts = stepped
+    npc, ego = ts.npc, ts.ego
+    E, N = npc.lane.shape
+    C = N + 1
+    cand = t_mixed.vehicle_candidates(npc, ego)
+    calls = []
+    plain = t_npc_lidar.npc_lidar_plain
+    monkeypatch.setattr(t_npc_lidar, "npc_lidar_plain",
+                        lambda *a: calls.append(len(a)) or plain(*a))
+    ours = t_mixed.npc_lidar(npc, cand, 240, 50.0)
+    assert calls == [8] and ours.shape == (E, N, 240)
+
+    c_pos, c_heading, c_len, c_wid, c_active = cand[:5]
+    rep = lambda a: a.repeat_interleave(N, dim=0)
+    not_self = ~torch.eye(N, C, dtype=torch.bool)
+    chain = t_raycast.lidar_cloud(
+        npc.pos.reshape(E * N, 2), npc.heading.reshape(E * N), 240, 50.0,
+        rep(c_pos), rep(c_heading), rep(c_len), rep(c_wid), rep(c_active) & not_self.repeat(E, 1),
+    ).reshape(E, N, 240)
+    assert torch.equal(ours, chain)
+
+    j = [jnp.asarray(to_np(a)) for a in cand[:5]]
+    jrep = lambda a: jnp.repeat(a, N, axis=0)
+    ref = jax.jit(j_raycast.lidar_cloud, static_argnums=(2, 3))(
+        jnp.asarray(to_np(npc.pos)).reshape(E * N, 2),
+        jnp.asarray(to_np(npc.heading)).reshape(E * N), 240, 50.0, *map(jrep, j[:4]),
+        jrep(j[4]) & jnp.tile(~jnp.eye(N, C, dtype=bool), (E, 1)))
+    np.testing.assert_allclose(ours.reshape(E * N, 240).numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    assert float(ours.min()) < 0.5
 
 
 @pytest.mark.parametrize("respawn", [False, True])

@@ -578,6 +578,44 @@ def test_kernel_cull_is_exact(source):
         assert kept.mean() < 0.25
 
 
+@pytest.mark.parametrize("distance", [50.0, 1.0, 3.0, 7.3, 1e-3, 1e30, 3e-38])
+def test_npc_lidar_min_of_t_then_one_scaling_is_the_plain_chains(distance):
+    """csrc/npc_lidar.cu keeps the least t of the boxes a ray hits and
+    scales it once: clamp(fl(min t * m), 0, 1) with m = fl(1 / distance), 1
+    where nothing is hit. The plain chain takes the least of
+    where(hit, clamp(fl(t * m), 0, 1), 1). Every hit has t >= 0 and
+    t -> clamp(fl(t * m), 0, 1) is monotone, so the two agree: here on
+    every kind of t >= 0 (random float32 bit patterns, 0 and +inf
+    included), rows with no hit among them."""
+    g = torch.Generator().manual_seed(18)
+    t = torch.randint(0, 0x7F800001, (4096, 14), generator=g, dtype=torch.int32)
+    t = t.view(torch.float32)
+    t[:, 0], t[:, 1] = 0.0, torch.inf
+    hit = torch.rand(4096, 14, generator=g) < 0.5
+    hit[:64] = False
+    m = torch.tensor(1.0 / distance, dtype=torch.float32)
+    plain = torch.where(hit, torch.clamp(t * m, 0.0, 1.0), 1.0).amin(-1)
+    once = torch.clamp(torch.where(hit, t, torch.inf).amin(-1) * m, 0.0, 1.0)
+    assert torch.equal(once, plain)
+    assert bool((plain[:64] == 1).all()) and bool((plain < 1).any())
+
+
+def test_npc_lidar_plain_on_the_edge_geometry():
+    """The plain version on chip_smoke.edge_npc_case, the geometry the card
+    tests hold the kernel to: a ray along a box's edge, an origin inside a
+    box, a corner graze at t = 0, a box of zero length, every body
+    inactive, NaN and infinite inputs."""
+    from metadrive_ped_torch.ops import npc_lidar as t_nl
+    plain = t_nl.npc_lidar(*chip_smoke.npc_to_device(chip_smoke.edge_npc_case(), "cpu"))
+    assert plain.shape == (6, 3, 16) and not bool(torch.isnan(plain).any())
+    assert abs(float(plain[0, 0, 0]) - 8 / 50) < 1e-7   # along the box's edge
+    assert plain[1, 0].lt(1).all()                    # inside: every ray exits
+    assert plain[2, 0, 0] == 0.0                      # the corner graze, t = 0
+    assert abs(float(plain[3, 0, 0]) - 5 / 50) < 1e-7   # the zero-length box
+    assert bool((plain[4] == 1).all()) and bool((plain[5, 1:] == 1).all())
+    assert bool((plain[5, 0] < 1).any())              # the infinite ego
+
+
 # ---------------------------------------------------------- collision.py
 def _boxes(seed, n, m):
     rng = np.random.RandomState(seed)

@@ -34,12 +34,13 @@ warms it up, then measures:
   capture: PERF.md §2);
 - device ms, wall ms, launches and peak device memory of the finer stages
   no span covers, each run alone on the step's state (--mixed splits the
-  expert traffic into the expert observation, the per-NPC lidar and the
-  MLP; --image splits the camera into its ray directions, ground hits,
-  box hits and the rest of the frame, with the frame's graph replayed as
-  one more stage, and the BEV into its texture samples, stamps and stack
-  ring; --sharded has no stages: its line carries the unsharded env's
-  replayed step of the same call beside the sharded one).
+  expert traffic into the expert observation, the per-NPC lidar kernel,
+  its plain chain beside it, and the MLP; --image splits the camera into
+  its ray directions, ground hits, box hits and the rest of the frame,
+  with the frame's graph replayed as one more stage, and the BEV into its
+  texture samples, stamps and stack ring; --sharded has no stages: its
+  line carries the unsharded env's replayed step of the same call beside
+  the sharded one).
 
 The numbers other than ``spans`` are of the eager step (`_step_eager`, `_rollout_eager`;
 with --sharded, the shards' eager loop), dispatched op by op as before
@@ -357,15 +358,15 @@ def profile_marl(card, args):
 def profile_mixed(card, args):
     """One JSON line for chip_smoke.py's mixed_traffic phase, with the
     expert traffic split into its stages (the expert observation, the
-    per-NPC lidar, the MLP), and one for its ai_protect_noise phase, whose
-    step goes through `step` (the protector reads the previous observation
-    only there)."""
+    per-NPC lidar kernel and, beside it, its plain chain, the MLP), and one
+    for its ai_protect_noise phase, whose step goes through `step` (the
+    protector reads the previous observation only there)."""
     import torch
 
     import chip_smoke as cs
     from metadrive_ped_torch import MetaDriveEnv, MixedTrafficEnv
     from metadrive_ped_torch.core import prng
-    from metadrive_ped_torch.ops import mixed_traffic
+    from metadrive_ped_torch.ops import mixed_traffic, npc_lidar
     from metadrive_ped_torch.policies.expert import expert_action
     env = MixedTrafficEnv(cs.MIXED_TRAFFIC, device="cuda")
     E = env.num_envs
@@ -393,6 +394,9 @@ def profile_mixed(card, args):
                 npc, mixed_traffic.vehicle_candidates(npc, ego), 4, lidar["distance"])),
         f"per-NPC lidar ({E * N} slots x {lidar['num_lasers']} rays x {N + 1} boxes)":
             lambda: mixed_traffic.npc_lidar(npc, cand, lidar["num_lasers"], lidar["distance"]),
+        "per-NPC lidar, the plain chain (ops/npc_lidar.py::npc_lidar_plain)":
+            lambda: npc_lidar.npc_lidar_plain(*cand[:5], N, lidar["num_lasers"],
+                                              lidar["distance"]),
         "expert MLP (275-256-256-4, float32)": lambda: expert_action(params, obs),
     }
     print(json.dumps(dict(phase="mixed_traffic", card=card, num_envs=E, npc_slots=N,
