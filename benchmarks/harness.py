@@ -7,7 +7,9 @@ traffic mix (traffic/<name>.json); its per-layer metrics are modules
 metrics/<name>.py with a function ``read(trace, env)``; its comparison
 limits are limits/<cell>.json. The harness drives the program's env
 (metadrive_ped_torch) through its public loops, ``rollout`` or ``step``,
-and the frozen reference (benchmarks/reference) through the same loops.
+and the frozen reference (benchmarks/reference) through the same loops; a
+configuration or traffic mix whose env the reference does not export names
+its reference class in a module of its own (``reference_class``).
 """
 import contextlib
 import gc
@@ -68,6 +70,7 @@ class Cell:
         self.config = _load("configs", entry["config"])
         self.traffic = _load("traffic", entry["traffic"])
         self.limits = _load("limits", name)
+        self.env_class = self.traffic.get("env_class", self.config["env_class"])
         self.end_to_end = [m for m in spec["end_to_end"] if name in m.get("workloads", [name])]
         reported = {m["name"] for m in self.end_to_end}
         self.per_layer = [m for m in spec["per_layer"]
@@ -78,11 +81,25 @@ class Cell:
         cfg = _merged(self.config["config"], self.traffic.get("config", {}))
         return _merged(cfg, overrides or {})
 
+    def reference_class(self):
+        """The reference's env class of this cell. A traffic mix or a
+        configuration may name it, ``"reference_class": "<module under
+        benchmarks/reference>:<Class>"``; the traffic's wins, as its
+        ``env_class`` does. Where the file that names the program's class
+        names no reference class, it is that class's name in
+        benchmarks.reference."""
+        for src in (self.traffic, self.config):
+            if "reference_class" in src:
+                module, name = src["reference_class"].split(":")
+                return getattr(importlib.import_module(f"{REFERENCE}.{module}"), name)
+            if "env_class" in src:
+                return getattr(importlib.import_module(REFERENCE), src["env_class"])
+
     def build(self, package, device, overrides=None):
         """The env of this cell from ``package`` (the program or the
         reference) on ``device``."""
-        cls_name = self.traffic.get("env_class", self.config["env_class"])
-        cls = getattr(importlib.import_module(package), cls_name)
+        cls = (self.reference_class() if package == REFERENCE
+               else getattr(importlib.import_module(package), self.env_class))
         return cls(self.env_config(overrides), device=device)
 
     def check_block(self, seed):
@@ -136,7 +153,8 @@ class _Kept:
 
 class RolloutLoop:
     """A trainer's collection loop: ``rollout(chunk)`` back to back, with
-    fixed actions, collecting what a PPO collector keeps."""
+    fixed actions, collecting what a PPO collector keeps. A step fails where
+    a collected field holds a value that is not finite."""
 
     def __init__(self, cell, env, seed, device):
         tr = cell.traffic
@@ -172,12 +190,13 @@ class RolloutLoop:
             if graphs and (graphs.replays - before[0], graphs.captures) != (self.chunk,
                                                                             before[1]):
                 unreplayed += self.chunk
-            obs = outs["obs"]
-            bad += (~torch.isfinite(obs.reshape(obs.shape[0], -1).sum(-1))).sum()
+            ok = torch.stack([torch.isfinite(v.reshape(self.chunk, -1).sum(-1))
+                              for v in outs.values()]).all(0)
+            bad += (~ok).sum()
             if not self.kept.done(self.steps):
                 self.kept.add(self.steps, outs)
             self.steps += self.chunk
-            del outs, obs
+            del outs, ok
             elapsed = time.perf_counter() - t0
             if elapsed >= seconds and self.kept.done(self.steps):
                 break

@@ -6,19 +6,15 @@ import torch
 
 from benchmarks import harness
 
-SMALL = {"pg": dict(num_envs=64), "marl_roundabout": dict(num_envs=2)}
-
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["pg.rollout", "marl_roundabout.rollout", "pg.step",
-                                  "pg.expert_traffic"])
+@pytest.mark.parametrize("name", [w["name"] for w in harness.benchmark_spec()["workloads"]])
 def test_a_traced_run_on_the_card(name):
+    """Cell ``name`` at its configuration's ``small`` size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cell = harness.Cell(name)
-    small = SMALL["marl_roundabout" if cell.config["env_class"].startswith("MultiAgent")
-                  else "pg"]
-    res = harness.run_cell(name, 11, 0.5, True, device="cuda", overrides=small,
+    res = harness.run_cell(name, 11, 0.5, True, device="cuda", overrides=cell.config["small"],
                            log=lambda *a: None)
     assert res["correct"], res["check"]
     assert res["failed"] == 0 and res["busy_s"] > 0
