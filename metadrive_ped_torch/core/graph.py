@@ -22,7 +22,9 @@ step is one replay and nothing more) and the step's outputs. The rules:
 
 1. **Keys.** `rollout` captures again when ``(policy_fn, collect,
    num_scenarios, shapes)`` changes: JAX's key without ``n_steps``, since
-   one graph serves every length. `step` captures again when
+   one graph serves every length (the shapes hold the image stack's where
+   the env renders frames: its region then renders each step's frame and
+   rolls the stack, a buffer as the state is). `step` captures again when
    ``(whether it reads the last observation, num_scenarios, shapes)``
    changes. An env keeps the newest graph of each (`EnvGraphs`), as JAX
    keeps its newest `rollout` compile; the key holds ``policy_fn`` itself,
@@ -67,10 +69,11 @@ Two more programs follow the same rules:
 
 - **The camera frame** (`EnvGraphs.frame`, the counterpart of
   ``_render_jit``): the env's frame of its state, keyed by (modality,
-  width, height, the state's shapes). It reads the state buffers of the
-  graph that stepped the env last (``stepped``), so a replayed step and
-  its frame copy nothing between them; a state that `reset` or `restore`
-  rebound is loaded into those buffers (rule 2).
+  width, height, the state's shapes, whether tracing is on: rule 8). It
+  reads the state buffers of the graph that stepped the env last
+  (``stepped``), so a replayed step and its frame copy nothing between
+  them; a state that `reset` or `restore` rebound is loaded into those
+  buffers (rule 2).
 - **The sharded step** (`ShardedGraphs`, for `parallel.ShardedEnv`): each
   shard's `_advance` and `_observe` as two graphs on the shard's device
   over one set of buffers (`ShardGraph`). Between the two replays runs
@@ -294,8 +297,13 @@ class EnvGraphs(_Slots):
 
     def rollout(self, env, n_steps, policy_fn, actions, collect):
         """``n_steps`` replays of the step with ``policy_fn(obs, state)`` or
-        the fixed ``actions``: the collected fields stacked over steps."""
+        the fixed ``actions``: the collected fields stacked over steps.
+        Where the env renders frames (`_frames`), the region also renders
+        the stepped state's frame and rolls the image stack, a buffer
+        ("image") as the state is, which ``"image"`` collects and which is
+        ``env._img_stack`` after the call."""
         collect = tuple(collect)
+        frames = env._frames()
 
         def body(b):
             act = policy_fn(b["obs"], b["state"]) if policy_fn is not None else b["actions"]
@@ -303,13 +311,18 @@ class EnvGraphs(_Slots):
             special = dict(reward=reward, obs=obs, terminated=terminated, truncated=truncated,
                            **env._rollout_fields(state))
             new = dict(state=state, obs=obs) if "obs" in b else dict(state=state)
+            if frames:
+                new["image"] = special["image"] = env._rolled_stack(state, b["image"])
             return new, (obs, {k: special[k] if k in special else info[k] for k in collect})
 
         with trace.span("rollout.load"):
             key = (policy_fn, collect, env.num_scenarios, signature(env._state, actions),
                    trace.enabled)
-            graph = self._loaded("_rollout", key, body,
-                                 self._inputs(env, actions, policy_fn is not None))
+            inputs = self._inputs(env, actions, policy_fn is not None)
+            if frames:
+                key += (signature(env._img_stack),)
+                inputs["image"] = env._img_stack
+            graph = self._loaded("_rollout", key, body, inputs)
         outs = _stacked(graph.outs[1], n_steps)
         for t in range(n_steps):
             with trace.span("rollout.replay"):
@@ -318,18 +331,21 @@ class EnvGraphs(_Slots):
                 _copy_step(outs, graph.outs[1], t)
         self.replays += n_steps
         self._stepped(env, graph)
+        if frames:
+            env._img_stack = graph.buffers["image"]
         return outs
 
     def frame(self, env, spec, render):
         """``render(state)`` replayed over ``env._state``: the graph's
         output, overwritten by the next frame. ``spec`` (modality, width,
-        height) and the state's shapes key the graph. Where the state is
-        the buffers of the graph that stepped the env last, the frame graph
-        reads them; a state rebound since (`reset`, `restore`) is copied
-        into its buffers, which become ``env._state``."""
+        height), the state's shapes and whether tracing is on key the
+        graph. Where the state is the buffers of the graph that stepped the
+        env last, the frame graph reads them; a state rebound since
+        (`reset`, `restore`) is copied into its buffers, which become
+        ``env._state``."""
         state = env._state
         stepped = state is self.stepped
-        key = (spec, signature(state))
+        key = (spec, signature(state), trace.enabled)
         # a frame graph that reads other buffers than the stepping graph's
         # is captured again over the stepping graph's
         fresh = stepped and self._frame is not None and self._frame.state is not state
@@ -369,6 +385,13 @@ class ShardGraph:
         self.observe = StepGraph(None, capture, lambda b: observe(b, self.advance.outs),
                                  buffers, tuple(buffers), warm_up=False)
         self.buffers, self.load = buffers, self.advance.load
+
+
+def refuse_sharded_image(collect):
+    """A sharded rollout renders no frame: it cannot collect "image"."""
+    if "image" in collect:
+        raise ValueError('a ShardedEnv rollout renders no frame and cannot collect "image": '
+                         "step the env, or roll it out unsharded")
 
 
 def _join_into(dst, parts):
@@ -508,6 +531,7 @@ class ShardedGraphs(_Slots):
         on the joined batch or the fixed actions ``blocks``: each shard's
         collected fields stacked over steps."""
         collect = tuple(collect)
+        refuse_sharded_image(collect)
 
         def advance(sh):
             def body(b):

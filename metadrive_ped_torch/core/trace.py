@@ -86,12 +86,20 @@ DEVICE_SPANS = {
     "observe.lidar": "observe",
     "observe.features": "observe",
     "graph.writeback": "replay",
+    # the image observation's frame: in a rollout's replay, or alone in the
+    # frame graph that `step` and `reset` replay
+    "camera": "replay",
+    "camera.ground": "camera",        # the ground hit (ops/camera.py::_ground_hit), a row chunk
+    "camera.boxes": "camera",         # the box hits (_box_hits), a row chunk
 }
 COUNTERS = (
     "reset.rows",       # rows a step replaced by a spawn
     "reset.computed",   # rows the spawns computed
     "expert.live",      # NPC slots active and driven by the expert
     "expert.computed",  # NPC slots the expert computed
+    "camera.pixels",          # rows x H x W the camera rendered
+    "camera.boxes_live",      # (pixel, active target slot) pairs
+    "camera.boxes_computed",  # (pixel, target slot) pairs the box test computed
 )
 # stamps a device keeps; past that the oldest are overwritten
 RING = 1 << 16

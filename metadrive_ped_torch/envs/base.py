@@ -209,7 +209,11 @@ class VectorEnvLoop:
         ``reward`` is collected. On a CUDA device each step is one replay of
         the step captured for (policy_fn, collect, num_scenarios, shapes),
         captured at the first call for that key (core/graph.py); on the CPU
-        the loop runs op by op."""
+        the loop runs op by op. Where the env renders frames (`_frames`),
+        every step also renders the stepped state's frame and rolls the
+        image stack, which ``"image"`` collects as `step` returns it, and
+        which a `step` after the rollout continues."""
+        self._check_collect(collect)
         with trace.span("env.rollout"):
             graphs = self._graphs_or_none()
             with trace.stage("rollout", self.device):
@@ -227,23 +231,51 @@ class VectorEnvLoop:
         """`rollout` dispatched op by op, on any device. Nothing chooses it on
         a CUDA device: it is called by name, to hold the replayed rollout
         against it and to profile the eager step."""
+        self._check_collect(collect)
         fixed = self._fixed_actions(actions)
         state, obs = self._state, self._last_obs
+        stack = self._img_stack if self._frames() else None
         outs = {k: [] for k in collect}
         for _ in range(n_steps):
             act = policy_fn(obs, state) if policy_fn is not None else fixed
             state, obs, reward, term, trunc, info = self._step_impl(state, act)
             special = dict(reward=reward, obs=obs, terminated=term, truncated=trunc,
                            **self._rollout_fields(state))
+            if stack is not None:
+                special["image"] = stack = self._rolled_stack(state, stack)
             for k in collect:
                 outs[k].append(special[k] if k in special else info[k])
         self._state, self._last_obs = state, obs
+        if stack is not None:
+            self._img_stack = stack
         outs = {k: tree_map(lambda *xs: torch.stack(xs), *v) for k, v in outs.items()}
         return outs, _mean_reward(outs)
+
+    # ---- the image stack of a rollout ----------------------------------------
+    def _frames(self):
+        """Whether every step renders a frame into the image stack
+        (`_img_stack`), which `rollout` then carries and collects as
+        ``"image"``."""
+        return False
+
+    def _rolled_stack(self, state, stack):
+        """The image stack after a step to ``state``."""
+        raise NotImplementedError
+
+    def _check_collect(self, collect):
+        if "image" in collect and not self._frames():
+            raise ValueError('"image" is collected only where the env renders frames '
+                             "(image_observation=True)")
 
 
 def _mean_reward(outs):
     return float(outs["reward"].mean()) if "reward" in outs else 0.0
+
+
+def _roll(stack, frame):
+    """The frame stack [E, H, W, C, K] rolled by one, ``frame`` [E, H, W, C]
+    newest (last): ImageObservation.observe's roll."""
+    return torch.cat([stack[..., 1:], frame[..., None]], dim=-1)
 
 
 class BaseVectorEnv(VectorEnvLoop):
@@ -618,9 +650,11 @@ class BaseVectorEnv(VectorEnvLoop):
 
     def _frame(self, state):
         """The frame as the observation stacks it: `_render_frame`, or
-        without norm_pixel uint8, frame * 255 truncated."""
-        frame = self._render_frame(state)
-        return frame if self.config["norm_pixel"] else (frame * 255).to(torch.uint8)
+        without norm_pixel uint8, frame * 255 truncated; the tracer's stage
+        `camera`."""
+        with trace.stage("camera", self.device):
+            frame = self._render_frame(state)
+            return frame if self.config["norm_pixel"] else (frame * 255).to(torch.uint8)
 
     def _image_obs(self, state_vec, graphs=None):
         """{"image": the frame stack [E, H, W, C, stack_size], "state":
@@ -633,8 +667,14 @@ class BaseVectorEnv(VectorEnvLoop):
                  else graphs.frame(self, self._sensor_spec(), self._frame))
         if self._img_stack is None:
             self._img_stack = frame.new_zeros(frame.shape + (self.config["stack_size"],))
-        self._img_stack = torch.cat([self._img_stack[..., 1:], frame[..., None]], dim=-1)
+        self._img_stack = _roll(self._img_stack, frame)
         return {"image": self._img_stack, "state": state_vec}
+
+    def _frames(self):
+        return self.config["image_observation"]
+
+    def _rolled_stack(self, state, stack):
+        return _roll(stack, self._frame(state))
 
     def _rollout_fields(self, state):
         return dict(

@@ -319,6 +319,7 @@ class ShardedEnv:
         mesh. Nothing chooses it on CUDA devices: it is called by name, to
         hold the replayed rollout against it and to profile the eager
         step."""
+        graph.refuse_sharded_image(collect)
         blocks = self._blocks(actions)
         states = [sh._state for sh in self.shards]
         obs = [sh._last_obs for sh in self.shards]

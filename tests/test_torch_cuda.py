@@ -265,6 +265,85 @@ def test_camera_frame_replay_equals_eager(cuda):
     assert a._graphs.frame_replays == 8 and a._graphs._frame.state is a._graphs._step.state
 
 
+IMAGE_CFG = dict(num_envs=64, map="SCS", num_scenarios=2, traffic_density=0.1, horizon=12,
+                 image_observation=True, stack_size=3, sensors=dict(main_camera=("rgb", 32, 32)))
+IMAGE_COLLECT = ("obs", "image", "reward", "terminated", "truncated")
+
+
+def _stepped_fields(env, act, n):
+    """``n`` `step` calls, stacked over steps as `rollout` collects them."""
+    outs = [_clone(env.step(act)) for _ in range(n)]
+    return dict(obs=torch.stack([o[0]["state"] for o in outs]),
+                image=torch.stack([o[0]["image"] for o in outs]),
+                reward=torch.stack([o[1] for o in outs]),
+                terminated=torch.stack([o[2] for o in outs]),
+                truncated=torch.stack([o[3] for o in outs]))
+
+
+def test_image_rollout_replay_equals_replayed_steps(cuda):
+    """The camera rendered and the stack rolled inside the rollout graph's
+    replay: over 20 steps in three calls (auto-resets among them) the
+    collected stacks, state observations, rewards and done flags equal the
+    replayed `step`s' and the eager loop's bit for bit, and so does the
+    stack a `step` after them continues."""
+    from metadrive_ped_torch import MetaDriveEnv
+    envs = [MetaDriveEnv(IMAGE_CFG, device="cuda") for _ in range(3)]
+    act = torch.tensor([[0.0, 1.0]] * 64, device="cuda")
+    for e in envs:
+        e.reset(seed=0)
+    parts = [envs[0].rollout(n, actions=act, collect=IMAGE_COLLECT)[0] for n in (7, 1, 12)]
+    rolled = {k: torch.cat([p[k] for p in parts]) for k in IMAGE_COLLECT}
+    eager = [envs[1]._rollout_eager(n, actions=act, collect=IMAGE_COLLECT)[0] for n in (7, 13)]
+    eager = {k: torch.cat([p[k] for p in eager]) for k in IMAGE_COLLECT}
+    stepped = _stepped_fields(envs[2], act, 20)
+    for k in IMAGE_COLLECT:
+        assert torch.equal(rolled[k], stepped[k]) and torch.equal(rolled[k], eager[k]), k
+    assert bool((stepped["terminated"] | stepped["truncated"]).any())
+    assert envs[0]._img_stack is envs[0]._graphs._rollout.buffers["image"]
+    nxt = [_clone(e.step(act)[0]["image"]) for e in envs]
+    assert torch.equal(nxt[0], nxt[1]) and torch.equal(nxt[0], nxt[2])
+    # the reset's frame graph and the rollout graph; then the step's graph
+    # and a frame graph over its buffers
+    assert envs[0]._graphs.captures == 4 and envs[0]._graphs.replays == 21
+
+
+def _device_ops(replay, n=3):
+    """The names of the device operations of one ``replay()``, counted over
+    ``n`` replays under the profiler (after one untimed replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            replay()
+        torch.cuda.synchronize()
+    return collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def test_a_rollout_graph_without_the_camera_holds_the_step_alone(cuda):
+    """An env without image_observation captures the rollout region it
+    captured before the camera entered `rollout`: the step, the collected
+    fields and the write-back, the same device operations a replay as a
+    graph captured here over that region."""
+    from metadrive_ped_torch.core import graph
+    env = _pg_detectors()
+    act = torch.tensor([[0.0, 1.0]] * env.num_envs, device="cuda")
+    collect = ("obs", "reward", "terminated", "truncated")
+    env.reset(seed=0)
+    env.rollout(2, actions=act, collect=collect)
+    assert len(env._graphs._rollout.key) == 5 and "image" not in env._graphs._rollout.buffers
+
+    def body(b):
+        state, obs, reward, terminated, truncated, info = env._step_impl(b["state"], b["actions"])
+        fields = dict(reward=reward, obs=obs, terminated=terminated, truncated=truncated)
+        return dict(state=state), (obs, {k: fields[k] for k in collect})
+    region = graph.StepGraph(None, graph.CudaGraphCapture(env.device), env._graphs._stamped(body),
+                             dict(state=env._state, actions=act))
+    ours, theirs = _device_ops(env._graphs._rollout.replay), _device_ops(region.replay)
+    assert ours == theirs and sum(ours.values()) > 3 * 1000
+
+
 # ---- CUDA-graph replay (metadrive_ped_torch/core/graph.py) -----------------
 
 def _pg_detectors():
@@ -549,6 +628,46 @@ def test_device_spans_sit_inside_their_host_calls(tracer):
     for launch, end, r in zip(launches, ends, replays):
         assert launch - 10_000 <= r["start_ns"] < r["end_ns"] <= end + 10_000, (
             r["start_ns"] - launch, end - r["end_ns"])
+
+
+def test_stamped_image_rollout_equals_unstamped(tracer):
+    """An image env's rollout and steps with the graphs captured with
+    tracing on (the camera's stages and counters inside the rollout graph
+    and the frame graph) equal those captured with it off, bit for bit;
+    captured off, no graph holds a stamp. The stamps: one `camera` span in
+    each replay, its row chunks' `camera.ground` and `camera.boxes` inside
+    it, one `camera` span a `step`'s frame; the counters: every pixel of
+    every frame, the live box pairs at most those computed."""
+    from metadrive_ped_torch import MetaDriveEnv
+    runs = []
+    for on in (False, True):
+        env = MetaDriveEnv(IMAGE_CFG, device="cuda")
+        act = torch.tensor([[0.0, 1.0]] * 64, device="cuda")
+        env.reset(seed=0)
+        if on:
+            tracer.enable()
+        outs = [env.rollout(n, actions=act, collect=IMAGE_COLLECT)[0] for n in (5, 9)]
+        outs.append([_clone(env.step(act)) for _ in range(3)])
+        graphs = env._graphs
+        tracer.disable()
+        assert graphs._rollout.key[4] is on and graphs._frame.key[-1] is on
+        stamped = [any(counter is tracer for counter, _ in g.tally)
+                   for g in (graphs._rollout, graphs._frame, graphs._step)]
+        assert stamped == [on] * 3
+        runs.append((outs, _clone((env._state, env._last_obs, env._img_stack))))
+    assert _equal_trees(runs[0], runs[1])
+    recs = tracer.records()
+    spans = recs["spans"]
+    cams = [i for i, s in enumerate(spans) if s["name"] == "camera"]
+    in_replay = [i for i in cams if spans[i]["parent"] is not None]
+    assert len(in_replay) == 14 and len(cams) == 14 + 3
+    assert all(spans[spans[i]["parent"]]["name"] == "replay" for i in in_replay)
+    for i in cams:
+        kids = [s["name"] for s in spans if s["parent"] == i]
+        assert kids and kids == ["camera.ground", "camera.boxes"] * (len(kids) // 2)
+    c = recs["counters"]
+    assert c["camera.pixels"] == 64 * 32 * 32 * 17 and recs["lost"] == 0
+    assert 0 < c["camera.boxes_live"] <= c["camera.boxes_computed"]
 
 
 # ---- the per-NPC lidar kernel (ops/npc_lidar.py, csrc/npc_lidar.cu) --------

@@ -18,6 +18,7 @@ PG = dict(num_envs=4, map="SCS", num_scenarios=2, traffic_density=0.1, horizon=1
 MIXED = dict(num_envs=4, map="SCS", num_scenarios=2, traffic_density=0.2, rl_agent_ratio=0.5,
              horizon=12)
 MARL = dict(num_envs=1, num_agents=8, horizon=20, delay_done=2)
+IMAGE = dict(PG, num_envs=2, image_observation=True, sensors=dict(main_camera=("rgb", 16, 12)))
 COLLECT = ("obs", "reward", "terminated", "truncated", "state")
 SPANS = {**trace.HOST_SPANS, **trace.DEVICE_SPANS}
 
@@ -118,7 +119,9 @@ def test_replayed_spans_nest_as_listed(replays):
     spans = _check_nesting(trace.records())
     names = [s["name"] for s in spans]
     for name in trace.DEVICE_SPANS:
-        assert name in names, name
+        # the camera's stages run only with image_observation (their test:
+        # test_a_traced_image_rollout_holds_the_camera_stages)
+        assert (name in names) != name.startswith("camera"), name
     for name in ("env.step", "step.actions", "step.load", "step.replay", "step.clone",
                  "step.frame_obs", "step.outputs", "env.rollout", "rollout.load",
                  "rollout.replay", "rollout.collect"):
@@ -165,7 +168,8 @@ def test_counters_equal_hand_counts():
     E, N = env._state.npc.active.shape
     assert done > 0 and live > 0
     assert counters == {"reset.rows": done, "reset.computed": E * steps,
-                        "expert.live": live, "expert.computed": E * N * steps}
+                        "expert.live": live, "expert.computed": E * N * steps,
+                        "camera.pixels": 0, "camera.boxes_live": 0, "camera.boxes_computed": 0}
 
 
 def test_marl_counts_respawns_and_resets():
@@ -183,11 +187,12 @@ def test_marl_counts_respawns_and_resets():
 
 
 def test_nothing_is_recorded_with_tracing_off(replays):
-    for cls, cfg in CLASSES.values():
+    for cls, cfg in (*CLASSES.values(), (T.MetaDriveEnv, IMAGE)):
         env = cls(cfg, device="cpu")
         env.reset(seed=5)
         env.rollout(3, actions=_full(env))
         env.step(_full(env))
+    assert env._graphs._frame.key[-1] is False and env._graphs._rollout.key[4] is False
     recs = trace.records()
     assert recs["spans"] == [] and set(recs["counters"].values()) == {0}
     assert not trace._devices or all(not d.stamps for d in trace._devices.values())
@@ -289,3 +294,65 @@ def test_the_gap_is_read_at_the_cells_chunk(replays, monkeypatch):
     spans = pt.records(tr, env)["spans"]
     assert sum(s["name"] == "replay" for s in spans) == 6
     assert env._graphs._rollout.key[1] == tuple(traffic["collect"])
+
+
+def test_a_traced_image_rollout_holds_the_camera_stages(replays):
+    """A replayed rollout of an image env: each replay holds one `camera`
+    span after `observe`, and each `camera` its row chunks' `camera.ground`
+    and `camera.boxes`; a `step`'s frame graph holds a `camera` span of its
+    own inside the step's host call. The counters: every pixel of every
+    frame, and the live box pairs at most those computed."""
+    env = T.MetaDriveEnv(IMAGE, device="cpu")
+    env.reset(seed=5)
+    trace.enable()
+    env.rollout(2, actions=_full(env), collect=("obs", "image"))   # the captures
+    env.step(_full(env))
+    trace.clear()
+    env.rollout(4, actions=_full(env), collect=("obs", "image"))
+    env.step(_full(env))
+    recs = trace.records()
+    spans = _check_nesting(recs)
+    replays_ = [i for i, s in enumerate(spans) if s["name"] == "replay"]
+    assert len(replays_) == 5
+    for i in replays_[:4]:
+        kids = [s["name"] for s in spans if s["parent"] == i]
+        assert kids == ["advance", "observe", "camera", "graph.writeback"]
+    cams = [i for i, s in enumerate(spans) if s["name"] == "camera"]
+    assert len(cams) == 5
+    for i in cams:
+        kids = [s["name"] for s in spans if s["parent"] == i]
+        assert kids and kids == ["camera.ground", "camera.boxes"] * (len(kids) // 2)
+    framed = [spans[i] for i in cams if spans[i]["parent"] is None]
+    step = [s for s in spans if s["name"] == "env.step"]
+    assert len(framed) == len(step) == 1
+    assert step[0]["start_ns"] <= framed[0]["start_ns"] <= framed[0]["end_ns"] <= step[0]["end_ns"]
+    c = recs["counters"]
+    T_ = env._lidar_targets(env._state)[0][0].shape[1]
+    frames, P = 4 + 1, 16 * 12
+    assert c["camera.pixels"] == env.num_envs * P * frames
+    assert c["camera.boxes_computed"] == env.num_envs * T_ * P * frames
+    assert 0 < c["camera.boxes_live"] <= c["camera.boxes_computed"]
+
+
+def test_the_camera_readers_find_their_numbers(replays, monkeypatch):
+    """The camera cell's per-layer readers (benchmarks/metrics/camera_*.py)
+    on an image env, reading rollouts of 6 steps: the span's ms, the live
+    share of the box pairs, and the frame's share of its bound, between 0
+    and 100."""
+    from benchmarks import camera_work, harness, yardstick
+    from benchmarks import program_trace as pt
+    monkeypatch.setattr(pt, "STEPS", 6)
+    env = T.MetaDriveEnv(IMAGE, device="cpu")
+    env.reset(seed=5)
+    tr = yardstick.Trace(20, [], [], 0.0, 1.0, actions=_full(env))
+    ms = harness.metric_reader("camera_replay_ms")(tr, env)
+    assert ms > 0
+    assert 0 < harness.metric_reader("camera_useful_pct")(tr, env) <= 100
+    share = harness.metric_reader("camera_roofline_pct")(tr, env)
+    assert share == pytest.approx(100.0 * camera_work.frame_bound(env)[0] / ms)
+    assert 0 < share < 100
+    plain = T.MetaDriveEnv(PG, device="cpu")
+    plain.reset(seed=5)
+    tr = yardstick.Trace(20, [], [], 0.0, 1.0, actions=_full(plain))
+    for name in ("camera_replay_ms", "camera_useful_pct", "camera_roofline_pct"):
+        assert harness.metric_reader(name)(tr, plain) is None, name
