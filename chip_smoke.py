@@ -131,11 +131,15 @@ camera frame's graph too), and fails where one did not.
                  (each a replay of the step's graph and of the camera
                  frame's): env-steps/s over steps 50-100, the camera's
                  launches and device ms per frame inside its graph and a
-                 step's, with its host API calls, from the profiler, the
-                 camera's bound (`camera_bound`), peak device memory
-                 (at most 16 GB), kernel launches (steps + 1: the state
-                 half), the second step under set_sync_debug_mode("error"),
-                 image and state finite in [0, 1]
+                 step's, with its host API calls, from the profiler, peak
+                 device memory (at most 16 GB), kernel launches (steps + 1
+                 of the detector kernel: the state half; steps + 1 of the
+                 camera kernel, `camera.launches`), the second step under
+                 set_sync_debug_mode("error"), image and state finite in
+                 [0, 1]; then the camera kernel against the plain chain on
+                 the state after the steps (camera_vs_plain: every modality
+                 bit-equal, the kernel's ms by events and by the profiler,
+                 the plain chain's ms, the frame's bound `camera_pairs_bound`)
 23. camera_modalities  depth, semantic, instance and the mini map at the
                  same config and pack, 10 steps each: shapes, ranges,
                  steps + 1 launches each
@@ -1640,13 +1644,83 @@ def image_steps(env, act, steps, timed_from):
 
 def camera_bound(E, P, L, B, T):
     """Least time (ms) of one camera frame of E envs at P pixels over L
-    lanes, B segments and T boxes, and what sets it: CAMERA_OPS operations
-    per pair against the float32 peak, or the frame's outputs written once
-    (the per-env tables it reads are under 0.1% of them)."""
-    ops = E * P * (CAMERA_OPS["segment"] * B + CAMERA_OPS["lane"] * L + CAMERA_OPS["box"] * T)
+    lanes, B segments and T boxes, every pair padded, and what sets it."""
+    return camera_pairs_ms(E * P, E * P * L, E * P * B, E * P * T)
+
+
+def camera_pairs_ms(pixels, lane_pairs, segment_pairs, box_pairs):
+    """Least time (ms) of one camera frame over counted (pixel, primitive)
+    pairs, and what sets it: CAMERA_OPS operations per pair against the
+    float32 peak, or the frame's outputs written once (the per-env tables
+    it reads are under 0.1% of them)."""
+    ops = (CAMERA_OPS["segment"] * segment_pairs + CAMERA_OPS["lane"] * lane_pairs
+           + CAMERA_OPS["box"] * box_pairs)
     t_ops = ops / PEAK_FP32_OPS * 1e3
-    t_bytes = E * P * CAMERA_OUT_FLOATS * 4 / PEAK_BYTES * 1e3
+    t_bytes = pixels * CAMERA_OUT_FLOATS * 4 / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def camera_pairs_bound(env):
+    """`camera_pairs_ms` of one frame of ``env`` at its state, and the pairs
+    it counts: only those that can count (each ground pixel against each
+    valid lane and segment of its row's scenario, each pixel against each
+    active body of its row), as the benchmark's yardstick counts them
+    (benchmarks/camera_work.py::frame_pairs, the one count of them)."""
+    from benchmarks.camera_work import frame_pairs
+    pixels, lanes, segments, boxes = frame_pairs(env)
+    return (camera_pairs_ms(pixels, lanes, segments, boxes),
+            dict(lane=lanes, segment=segments, box=boxes))
+
+
+def camera_args(env):
+    """The `camera.render` arguments and keywords of ``env``'s camera at
+    its current state."""
+    st = env._state
+    targets, _ = env._lidar_targets(st)
+    _, w, h = env._sensor_spec()
+    cam = env.config["camera"]
+    return ((env.scene, st.sidx, st.ego, targets, env._target_slices,
+             env.scene.obj_kind[st.sidx.long()]),
+            dict(width=w, height=h, fov_deg=cam["fov"], pitch_deg=cam["pitch"],
+                 cam_height=cam["height"], max_dist=cam["max_dist"]))
+
+
+def camera_gaps(args, kw):
+    """The kernel's frame against the plain chain's: {modality: (max abs
+    difference, pixels that differ)}, one kernel launch."""
+    import torch
+
+    from metadrive_ped_torch.ops import camera
+    before = camera.launches
+    out = camera.render(*args, **kw)
+    ref = camera.render_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if camera.launches != before + 1:
+        raise AssertionError(f"camera: {camera.launches - before} kernel launches for a frame")
+    return {k: (float((out[k] - ref[k]).abs().max()), int((out[k] != ref[k]).any(-1).sum()))
+            for k in camera.MODALITIES}
+
+
+def camera_case(name, env, iters):
+    """The camera kernel against the plain chain at ``env``'s state: every
+    modality bit-equal (max abs difference 0.0), the kernel's ms by events
+    (its torch launches for the cosines and sines included) and by the
+    profiler (the kernel alone), the plain chain's, the frame's bound."""
+    from metadrive_ped_torch.ops import camera
+    args, kw = camera_args(env)
+    gaps = camera_gaps(args, kw)
+    if any(gap != (0.0, 0) for gap in gaps.values()):
+        raise AssertionError(f"{name}: the camera kernel differs from the plain chain: {gaps}")
+    frame = lambda: camera.render(*args, **kw)  # noqa: E731
+    (bound_ms, bound_by), pairs = camera_pairs_bound(env)
+    device_ms = kernel_device_ms(frame, iters, kernel="camera_kernel")
+    row = dict(case=name, E=env.num_envs, camera=list(env._sensor_spec()), pairs=pairs,
+               max_abs_err=gaps, tol=0.0, ms=time_ms(frame, iters), device_ms=device_ms,
+               plain_ms=time_ms(lambda: camera.render_plain(*args, **kw), 2, warmup=1),
+               bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / device_ms if device_ms else None, library_ms=None)
+    emit(phase="camera_vs_plain", **row)
+    return row
 
 
 def in_unit_range(x, shape):
@@ -1671,14 +1745,14 @@ def drive_image_obs(card):
     env.reset(seed=0)
     krow = kernel_case("image_obs", detector_args(env), iters=20)
     act = torch.tensor([0.0, 1.0], device=DEVICE).expand(E, 2).contiguous()
+    camera.launches = 0
     obs, seconds, finished, launches, peak = image_steps(env, act, IMAGE_STEPS, IMAGE_TIMED_FROM)
+    camera_launches = camera.launches
     image_ok = in_unit_range(obs["image"], (E, 84, 84, 3, IMAGE_OBS["stack_size"]))
     state_ok = in_unit_range(obs["state"], (E, env.observation_dim))
     L, B = env.scene.lane_kind.shape[1], env.scene.seg_type.shape[1]
     T = int(env._lidar_targets(env._state)[0][0].shape[1])
-    P = 84 * 84
-    rows = max(1, camera.RENDER_CHUNK_ELEMENTS // (P * max(L, B, T)))
-    bound_ms, bound_by = camera_bound(E, P, L, B, T)
+    (bound_ms, bound_by), _ = camera_pairs_bound(env)
     # the camera's kernels inside its graph (two replays of the frame graph),
     # then two steps: the step's replay, the frame's, the stack
     frame = env._graphs._frame
@@ -1689,8 +1763,8 @@ def drive_image_obs(card):
                stack_size=IMAGE_OBS["stack_size"], steps=IMAGE_STEPS,
                rate_window=f"steps {IMAGE_TIMED_FROM}-{IMAGE_STEPS}", seconds=seconds,
                env_steps_per_s=E * (IMAGE_STEPS - IMAGE_TIMED_FROM) / seconds, card=card,
-               lanes=L, segments=B, targets=T, chunk_rows=rows, chunks=-(-E // rows),
-               camera_pairs=dict(segment=E * P * B, lane=E * P * L, box=E * P * T),
+               lanes=L, segments=B, targets=T, camera_kernel_launches=camera_launches,
+               expected_camera_launches=IMAGE_STEPS + 1,
                camera_launches_per_call=cam_launches, camera_device_ms_per_call=cam_ms,
                camera_bound_ms=bound_ms, camera_bound_by=bound_by,
                camera_share_of_bound=bound_ms / cam_ms if cam_ms else None,
@@ -1710,8 +1784,12 @@ def drive_image_obs(card):
     if launches != IMAGE_STEPS + 1:
         raise AssertionError(f"image_obs: ray-segment kernel launched {launches} times, "
                              f"expected {IMAGE_STEPS + 1}")
+    if camera_launches != IMAGE_STEPS + 1:
+        raise AssertionError(f"image_obs: camera kernel launched {camera_launches} times, "
+                             f"expected {IMAGE_STEPS + 1}")
     if peak > 16e9:
         raise AssertionError(f"image_obs: peak device memory {peak} bytes is above 16 GB")
+    camera_case("image_obs", env, iters=20)
     return env, row, krow
 
 

@@ -89,6 +89,8 @@ DEVICE_SPANS = {
     # the image observation's frame: in a rollout's replay, or alone in the
     # frame graph that `step` and `reset` replay
     "camera": "replay",
+    # the plain chain's stages (ops/camera.py::render_plain, the CPU's path);
+    # on the card the frame is one kernel inside `camera`
     "camera.ground": "camera",        # the ground hit (ops/camera.py::_ground_hit), a row chunk
     "camera.boxes": "camera",         # the box hits (_box_hits), a row chunk
 }
@@ -100,6 +102,7 @@ COUNTERS = (
     "camera.pixels",          # rows x H x W the camera rendered
     "camera.boxes_live",      # (pixel, active target slot) pairs
     "camera.boxes_computed",  # (pixel, target slot) pairs the box test computed
+                              # (the kernel counts its own, both passes)
 )
 # stamps a device keeps; past that the oldest are overwritten
 RING = 1 << 16

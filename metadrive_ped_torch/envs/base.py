@@ -645,7 +645,8 @@ class BaseVectorEnv(VectorEnvLoop):
         out = camera.render(
             self.scene, state.sidx, state.ego, targets, self._target_slices,
             self.scene.obj_kind[state.sidx.long()], width=w, height=h, fov_deg=cam["fov"],
-            pitch_deg=cam["pitch"], cam_height=cam["height"], max_dist=cam["max_dist"])
+            pitch_deg=cam["pitch"], cam_height=cam["height"], max_dist=cam["max_dist"],
+            modalities=(modality,))
         return out[modality]
 
     def _frame(self, state):

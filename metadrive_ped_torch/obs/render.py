@@ -120,7 +120,7 @@ def render_rgb_array(env, env_index=0, width=256, height=144):
         [x[rows] for x in targets], env._target_slices,
         env.scene.obj_kind[state.sidx[rows].long()], width=width, height=height,
         fov_deg=cam["fov"], pitch_deg=cam["pitch"], cam_height=cam["height"],
-        max_dist=cam["max_dist"])["rgb"][0]
+        max_dist=cam["max_dist"], modalities=("rgb",))["rgb"][0]
     return (_np(frame) * 255).astype(np.uint8)
 
 

@@ -15,23 +15,34 @@ analytic ray cast against the same scene tensors the physics uses:
 It is a flat-shaded sensor renderer (semantic / depth / instance), not a
 photoreal one (the reference's render_pipeline is out of scope).
 
-The pixel x primitive products ([rows, P, lanes], [rows, P, segments],
+`render_plain` is the broadcast chain, as the JAX package computes it
+(metadrive_ped_tpu/ops/camera.py, with jnp broadcasts: no TPU kernel). Its
+pixel x primitive products ([rows, P, lanes], [rows, P, segments],
 [rows, P, boxes] with P = height * width) run in chunks of env rows, each
 at most RENDER_CHUNK_ELEMENTS elements per temporary, which bounds the
 device memory of a frame of any number of envs. Each chunk's ground hit and
-box hits are the tracer's stages `camera.ground` and `camera.boxes`, and
-it counts its pixels and (pixel, target slot) pairs (core/trace.py).
+box hits are the tracer's stages `camera.ground` and `camera.boxes`.
+`render` computes the same frame: by `render_plain` for CPU tensors, and
+for CUDA tensors in one launch of the hand-written kernel in
+csrc/camera.cu over every row, or it raises. Both count the pixels and the
+(pixel, target slot) pairs of the box test (core/trace.py).
 """
+import collections
+import ctypes
 import functools
 import math
+import sys
 
 import numpy as np
 import torch
 
-from metadrive_ped_torch.constants import SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE
-from metadrive_ped_torch.core import trace
+from metadrive_ped_torch.constants import (
+    LANE_CIRCULAR, SEG_SIDEWALK, SEG_WHITE_LINE, SEG_YELLOW_LINE,
+)
+from metadrive_ped_torch.core import cuda_build, launches as launch_counts, trace
 from metadrive_ped_torch.mapgen.scene import OBJ_BUILDING
 from metadrive_ped_torch.ops import lane_geom
+from metadrive_ped_torch.ops.ray_segment import _check
 
 # semantic class ids (palette below follows the reference's Semantics,
 # constants.py:372-392)
@@ -63,6 +74,13 @@ SEMANTIC_PALETTE = np.array(
 
 FAR = 1e6
 RENDER_CHUNK_ELEMENTS = 1 << 28
+MODALITIES = ("depth", "semantic", "rgb", "instance")
+
+# launches of the kernel since the last reset (set to 0 to start counting),
+# in all and by device index (clear to start counting); this module is the
+# counter `core.launches.record` keeps, replays of a captured step included
+launches = 0
+launches_by_device = collections.Counter()
 
 
 def _radians(deg):
@@ -77,29 +95,55 @@ def _palette(device):
     return torch.as_tensor(SEMANTIC_PALETTE).to(device)
 
 
-def pixel_rays(heading, width, height, fov_deg, pitch_deg, cam_height):
-    """World-frame ray directions [E, P, 3] of an [E] batch of cameras,
-    P = height * width in row-major pixel order; +z up."""
-    dev = heading.device
+# camera_rays's rays by (width, height, fov, pitch, device)
+_kept_rays = {}
+
+
+def camera_rays(width, height, fov_deg, pitch_deg, device):
+    """Camera-frame unit ray directions (dx, dy, dz), each [P] with P =
+    height * width in row-major pixel order: +x ahead, +y left, +z up,
+    pitched down by ``pitch_deg``; the heading turns them into the world
+    (`pixel_rays`). Computed once for each camera and device and kept, as
+    `_palette` is, so a frame computes only what the heading turns; rays
+    first computed while a CUDA graph is captured are not kept (captured
+    work runs only when the graph is replayed)."""
+    device = torch.device(device)
+    key = (width, height, fov_deg, pitch_deg, device)
+    rays = _kept_rays.get(key)
+    if rays is None:
+        rays = _camera_rays(width, height, fov_deg, pitch_deg, device)
+        if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            _kept_rays[key] = rays
+    return rays
+
+
+def _camera_rays(width, height, fov_deg, pitch_deg, device):
     # the camera's constants are float32 numbers computed on the host, used
     # exactly by the float32 kernels
     tan_half = float(np.tan(_radians(fov_deg) / np.float32(2)))
     p = _radians(pitch_deg)
     cos_p, sin_p = float(np.cos(p)), float(np.sin(p))
     aspect = height / width
-    xs = (torch.arange(width, device=dev) + 0.5) / width    # 0..1 across the image
-    ys = (torch.arange(height, device=dev) + 0.5) / height
+    xs = (torch.arange(width, device=device) + 0.5) / width    # 0..1 across the image
+    ys = (torch.arange(height, device=device) + 0.5) / height
     cam_y = (0.5 - xs) * 2 * tan_half                        # +y = left
     cam_z = (0.5 - ys) * 2 * tan_half * aspect               # +z = up
     yy = cam_y[None, :].expand(height, width)
     zz = cam_z[:, None].expand(height, width)
-    d0 = torch.ones(height * width, device=dev)
+    d0 = torch.ones(height * width, device=device)
     d1, d2 = yy.reshape(-1), zz.reshape(-1)
     # pitch around the camera's y axis (down-tilt positive)
     dx = d0 * cos_p + d2 * sin_p
     dz = -d0 * sin_p + d2 * cos_p
     norm = torch.sqrt(dx * dx + d1 * d1 + dz * dz)
-    dx, dy, dz = dx / norm, d1 / norm, dz / norm
+    return dx / norm, d1 / norm, dz / norm
+
+
+
+def pixel_rays(heading, width, height, fov_deg, pitch_deg, cam_height):
+    """World-frame ray directions [E, P, 3] of an [E] batch of cameras,
+    P = height * width in row-major pixel order; +z up."""
+    dx, dy, dz = camera_rays(width, height, fov_deg, pitch_deg, heading.device)
     # rotate into the world by the heading
     ch, sh = torch.cos(heading), torch.sin(heading)          # [E]
     wx = ch[:, None] * dx[None, :] - sh[:, None] * dy[None, :]
@@ -107,15 +151,38 @@ def pixel_rays(heading, width, height, fov_deg, pitch_deg, cam_height):
     return torch.stack([wx, wy, dz[None, :].expand_as(wx)], dim=-1)
 
 
-def _ground_hit(scene, sidx, origin_xy, cam_h, dirs, line_probe_dist):
-    """Ray vs the z=0 plane and the semantic class of the hit point:
-    (t [E, P], sem [E, P])."""
+def _ground_points(origin_xy, cam_h, dirs):
+    """Ray vs the z=0 plane: (t, px, py) [E, P], t = FAR where the ray
+    does not descend."""
     dz = dirs[..., 2]
     # a true division (a Python number over a tensor would multiply by the
     # reciprocal, a second rounding)
     t = torch.where(dz < -1e-6, torch.full_like(dz, -cam_h) / dz, FAR)
     px = origin_xy[:, None, 0] + t * dirs[..., 0]
     py = origin_xy[:, None, 1] + t * dirs[..., 1]
+    return t, px, py
+
+
+def _segment_distances(scene, sidx, px, py):
+    """Distances [E, P, B] of the points (px, py) [E, P] to every segment of
+    their rows' scenarios, one coordinate at a time."""
+    s = sidx.long()
+    p0, p1 = scene.seg_p0[s][:, None], scene.seg_p1[s][:, None]   # [E, 1, B, 2]
+    abx, aby = p1[..., 0] - p0[..., 0], p1[..., 1] - p0[..., 1]
+    apx, apy = px[..., None] - p0[..., 0], py[..., None] - p0[..., 1]
+    denom = torch.clamp(abx * abx + aby * aby, min=1e-9)
+    tt = torch.clamp((apx * abx + apy * aby) / denom, 0.0, 1.0)
+    del apx, apy
+    ex = px[..., None] - (p0[..., 0] + tt * abx)
+    ey = py[..., None] - (p0[..., 1] + tt * aby)
+    del tt
+    return torch.sqrt(ex * ex + ey * ey)
+
+
+def _ground_hit(scene, sidx, origin_xy, cam_h, dirs, line_probe_dist):
+    """Ray vs the z=0 plane and the semantic class of the hit point:
+    (t [E, P], sem [E, P])."""
+    t, px, py = _ground_points(origin_xy, cam_h, dirs)
     p = torch.stack([px, py], dim=-1)                        # [E, P, 2]
 
     # on road: within half a width of some lane's centerline span
@@ -125,21 +192,11 @@ def _ground_hit(scene, sidx, origin_xy, cam_h, dirs, line_probe_dist):
     on_road = ((long >= 0) & (long <= gb["length"]) & (torch.abs(lat) <= gb["width"] / 2)
                & (gb["length"] > 1e-3)).any(dim=-1)          # [E, P]
 
-    # segment distances (lane lines, sidewalks), one coordinate at a time
+    # segment distances (lane lines, sidewalks)
     s = sidx.long()
-    p0, p1 = scene.seg_p0[s][:, None], scene.seg_p1[s][:, None]   # [E, 1, B, 2]
     seg_type, seg_hw = scene.seg_type[s][:, None], scene.seg_halfwidth[s][:, None]
     seg_valid = scene.seg_valid[s][:, None]
-    abx, aby = p1[..., 0] - p0[..., 0], p1[..., 1] - p0[..., 1]
-    apx, apy = px[..., None] - p0[..., 0], py[..., None] - p0[..., 1]
-    denom = torch.clamp(abx * abx + aby * aby, min=1e-9)
-    tt = torch.clamp((apx * abx + apy * aby) / denom, 0.0, 1.0)
-    del apx, apy
-    ex = px[..., None] - (p0[..., 0] + tt * abx)
-    ey = py[..., None] - (p0[..., 1] + tt * aby)
-    del tt
-    dseg = torch.sqrt(ex * ex + ey * ey)                     # [E, P, B]
-    del ex, ey
+    dseg = _segment_distances(scene, sidx, px, py)           # [E, P, B]
     near = (dseg <= seg_hw + line_probe_dist) & seg_valid
     is_line = (near & ((seg_type == SEG_YELLOW_LINE) | (seg_type == SEG_WHITE_LINE))).any(-1)
     is_walk = (near & (seg_type == SEG_SIDEWALK)).any(-1)
@@ -190,16 +247,39 @@ def _box_hits(origin_xy, cam_h, dirs, t_pos, t_heading, t_len, t_wid, t_hgt, t_a
 
 
 def render(scene, sidx, ego, targets, slices, obj_kind, *, width=84, height=84,
-           fov_deg=66.0, pitch_deg=0.0, cam_height=1.4, max_dist=50.0):
-    """Render all camera modalities at once.
+           fov_deg=66.0, pitch_deg=0.0, cam_height=1.4, max_dist=50.0, modalities=MODALITIES):
+    """Render the camera ``modalities`` (by default all four).
 
     targets (pos, heading, len, wid, active) [E, T, ...] are the env's lidar
     targets (`_lidar_targets`): every visible body; ``slices`` gives the
     target axis's "obj" and "ped" slices; obj_kind [E, O] the static
-    objects' kinds. Returns dict(depth [E,H,W,1], semantic [E,H,W,3],
-    rgb [E,H,W,3], instance [E,H,W,3]), all float32 in [0, 1]. The env rows
-    run in chunks (RENDER_CHUNK_ELEMENTS).
-    """
+    objects' kinds. Returns a dict of the modalities asked for, of
+    depth [E,H,W,1], semantic [E,H,W,3], rgb [E,H,W,3] and instance
+    [E,H,W,3], all float32 in [0, 1].
+
+    CPU tensors take `render_plain`; CUDA tensors launch the kernel once
+    for all rows (none when E is 0), on their own device's current stream,
+    after torch computes the cos and sin of the headings (the camera's rays
+    are kept, `camera_rays`; `_render_kernel`)."""
+    unknown = [m for m in modalities if m not in MODALITIES]
+    if unknown:
+        raise ValueError(f"unknown camera modalities {unknown}; known: {MODALITIES}")
+    kw = dict(width=width, height=height, fov_deg=fov_deg, pitch_deg=pitch_deg,
+              cam_height=cam_height, max_dist=max_dist, modalities=modalities)
+    dev = ego.pos.device
+    if dev.type == "cpu":
+        return render_plain(scene, sidx, ego, targets, slices, obj_kind, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"the camera renders on cpu or cuda, not {dev}")
+    return _render_kernel(scene, sidx, ego, targets, slices, obj_kind, **kw)
+
+
+def render_plain(scene, sidx, ego, targets, slices, obj_kind, *, width=84, height=84,
+                 fov_deg=66.0, pitch_deg=0.0, cam_height=1.4, max_dist=50.0,
+                 modalities=MODALITIES):
+    """Plain torch version of `render`, on any device: the broadcast chain,
+    its env rows in chunks (RENDER_CHUNK_ELEMENTS), each chunk computing
+    every modality."""
     E = ego.pos.shape[0]
     P = width * height
     widest = max(scene.lane_kind.shape[1], scene.seg_type.shape[1], targets[0].shape[1], 1)
@@ -212,8 +292,8 @@ def render(scene, sidx, ego, targets, slices, obj_kind, *, width=84, height=84,
             [x[a:b] for x in targets], slices, obj_kind[a:b],
             width, height, fov_deg, pitch_deg, cam_height, max_dist))
     if len(parts) == 1:
-        return parts[0]
-    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        return {k: parts[0][k] for k in modalities}
+    return {k: torch.cat([p[k] for p in parts]) for k in modalities}
 
 
 def _render_rows(scene, sidx, pos, heading, length, targets, slices, obj_kind, width, height,
@@ -271,3 +351,124 @@ def _render_rows(scene, sidx, pos, heading, length, targets, slices, obj_kind, w
     inst = inst_colors[box_idx] * (box_wins & hit)[..., None]
     return dict(depth=depth_img, semantic=color.reshape(E, H, W, 3), rgb=rgb_img,
                 instance=inst.reshape(E, H, W, 3))
+
+
+# ---- the kernel (csrc/camera.cu) ------------------------------------------
+
+_POINTERS = ("sidx", "pos", "cos_h", "sin_h", "length", "ray_x", "ray_y", "ray_z",
+             "lane_kind", "lane_p0", "lane_dir", "lane_radius", "lane_start_phase",
+             "lane_arc_dir", "lane_width", "lane_length", "lane_angle",
+             "seg_p0", "seg_p1", "seg_type", "seg_halfwidth", "seg_valid",
+             "t_pos", "t_cos", "t_sin", "t_len", "t_wid", "t_active", "obj_kind", "palette",
+             "depth", "semantic", "rgb", "instance", "box_tests")
+_INTS = ("E", "P", "S", "L", "B", "T", "O", "obj0", "ped0", "ped1",
+         "lane_circular", "seg_sidewalk", "seg_yellow", "seg_white", "obj_building")
+_FLOATS = ("cam_h", "line_probe", "inv_max_dist")
+_MAX_PIXELS = 65535 * 256  # the grid's pixel tiles (csrc/camera.cu's kThreads)
+
+
+class _Args(ctypes.Structure):
+    """csrc/camera.cu's CameraArgs, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS] + [(n, ctypes.c_int) for n in _INTS]
+                + [(n, ctypes.c_float) for n in _FLOATS])
+
+
+def _kernel_lib():
+    fn = cuda_build.library("camera").camera_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _operand(name, t, device, dtype, shape):
+    """``t`` made contiguous, checked for device, dtype and shape."""
+    t = t.contiguous()
+    _check(name, t, device, dtype, shape)
+    return t
+
+
+def _kind_range(name, sl, T, size=None):
+    """(start, stop) of the target slice ``sl`` on a T-long axis, which must
+    step by one (and hold ``size`` slots where given)."""
+    r = range(T)[sl]
+    if r.step != 1 or (size is not None and len(r) != size):
+        raise ValueError(f"the {name} slice {sl} must step by 1 over {size} of {T} targets")
+    return r.start, r.stop
+
+
+def _render_kernel(scene, sidx, ego, targets, slices, obj_kind, *, width, height, fov_deg,
+                   pitch_deg, cam_height, max_dist, modalities):
+    """`render` on a CUDA device: one launch of csrc/camera.cu. Every input
+    must lie on ego.pos's device; sidx and obj_kind are int32, the bool
+    masks bool, the rest float32. A row whose sidx lies outside [0, S)
+    reads NaN."""
+    dev = ego.pos.device
+    E = ego.pos.shape[0]
+    W, H = int(width), int(height)
+    P = W * H
+    if not (1 <= P <= _MAX_PIXELS and E < 2 ** 31):
+        raise ValueError(f"need 1 <= width * height <= {_MAX_PIXELS} and fewer than 2**31 "
+                         f"rows; got {W} x {H} and {E} rows")
+    if not max_dist > 0:
+        raise ValueError(f"max_dist must be positive, not {max_dist}")
+    f32 = torch.float32
+    S, L = scene.lane_kind.shape
+    B = scene.seg_type.shape[1]
+    T = targets[0].shape[1]
+    O = obj_kind.shape[1]
+    ops = dict(
+        sidx=_operand("sidx", sidx, dev, torch.int32, (E,)),
+        pos=_operand("ego.pos", ego.pos, dev, f32, (E, 2)),
+        length=_operand("ego length", ego.params.length, dev, f32, (E,)),
+        lane_kind=_operand("lane_kind", scene.lane_kind, dev, torch.int32, (S, L)),
+        lane_p0=_operand("lane_p0", scene.lane_p0, dev, f32, (S, L, 2)),
+        lane_dir=_operand("lane_dir", scene.lane_dir, dev, f32, (S, L, 2)),
+        **{k: _operand(k, getattr(scene, k), dev, f32, (S, L))
+           for k in ("lane_radius", "lane_start_phase", "lane_arc_dir", "lane_width",
+                     "lane_length", "lane_angle")},
+        seg_p0=_operand("seg_p0", scene.seg_p0, dev, f32, (S, B, 2)),
+        seg_p1=_operand("seg_p1", scene.seg_p1, dev, f32, (S, B, 2)),
+        seg_type=_operand("seg_type", scene.seg_type, dev, torch.int32, (S, B)),
+        seg_halfwidth=_operand("seg_halfwidth", scene.seg_halfwidth, dev, f32, (S, B)),
+        seg_valid=_operand("seg_valid", scene.seg_valid, dev, torch.bool, (S, B)),
+        t_pos=_operand("target pos", targets[0], dev, f32, (E, T, 2)),
+        t_len=_operand("target len", targets[2], dev, f32, (E, T)),
+        t_wid=_operand("target wid", targets[3], dev, f32, (E, T)),
+        t_active=_operand("target active", targets[4], dev, torch.bool, (E, T)),
+        obj_kind=_operand("obj_kind", obj_kind, dev, torch.int32, (E, O)),
+    )
+    heading = _operand("ego.heading", ego.heading, dev, f32, (E,))
+    t_heading = _operand("target heading", targets[1], dev, f32, (E, T))
+    obj0, _ = _kind_range("obj", slices["obj"], T, O)
+    ped0, ped1 = _kind_range("ped", slices["ped"], T)
+    out = {m: torch.empty((E, H, W, 1 if m == "depth" else 3), dtype=f32, device=dev)
+           for m in modalities}
+    if E == 0:
+        return out
+    ops["cos_h"], ops["sin_h"] = torch.cos(heading), torch.sin(heading)
+    ops["t_cos"], ops["t_sin"] = torch.cos(t_heading), torch.sin(t_heading)
+    ops["ray_x"], ops["ray_y"], ops["ray_z"] = camera_rays(W, H, fov_deg, pitch_deg, dev)
+    ops["palette"] = _palette(dev)
+    ptrs = {k: t.data_ptr() for k, t in ops.items()}
+    ptrs.update({m: (out[m].data_ptr() if m in out else None) for m in MODALITIES})
+    # the (pixel, slot) pairs the box tests compute, counted by the kernel
+    # while tracing is on
+    tests = torch.zeros((), dtype=torch.int64, device=dev) if trace.enabled else None
+    ptrs["box_tests"] = None if tests is None else tests.data_ptr()
+    args = _Args(**ptrs, E=E, P=P, S=S, L=L, B=B, T=T, O=O, obj0=obj0, ped0=ped0, ped1=ped1,
+                 lane_circular=LANE_CIRCULAR, seg_sidewalk=SEG_SIDEWALK,
+                 seg_yellow=SEG_YELLOW_LINE, seg_white=SEG_WHITE_LINE,
+                 obj_building=OBJ_BUILDING, cam_h=cam_height, line_probe=0.0,
+                 inv_max_dist=float(np.float32(1) / np.float32(max_dist)))
+    fn = _kernel_lib()
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"camera kernel launch failed: cudaError {err}")
+    launch_counts.record(sys.modules[__name__], dev.index)
+    if tests is not None:
+        trace.count("camera.pixels", E * P, dev)
+        trace.count("camera.boxes_live", ops["t_active"].sum() * P, dev)
+        trace.count("camera.boxes_computed", tests, dev)
+    return out

@@ -163,3 +163,34 @@ def test_program_camera_equals_the_reference_copy(seed, monkeypatch):
             assert torch.equal(ours[k], ref[k]), (k, chunk)
         sem = ours["semantic"].reshape(-1, 3)
         assert len(torch.unique(sem, dim=0)) >= 4, "the case draws sky, ground, lines and bodies"
+
+
+@pytest.mark.parametrize("modality", camera.MODALITIES)
+def test_render_gives_only_the_modalities_asked_for(modality):
+    """`render(..., modalities=(m,))` is `render(...)[m]`, and nothing else."""
+    args, kw = _random_case(4)
+    one = camera.render(*args, **kw, modalities=(modality,))
+    assert list(one) == [modality]
+    assert torch.equal(one[modality], camera.render(*args, **kw)[modality])
+
+
+def test_render_takes_the_plain_chain_for_cpu_tensors(monkeypatch):
+    """On CPU tensors `render` is `render_plain` and launches nothing; an
+    unknown modality, or a device that is neither cpu nor cuda, raises."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("launched the kernel")
+    monkeypatch.setattr(camera, "_render_kernel", refuse)
+    args, kw = _random_case(5)
+    before = camera.launches
+    ours, plain = camera.render(*args, **kw), camera.render_plain(*args, **kw)
+    assert list(ours) == list(camera.MODALITIES)
+    for k in camera.MODALITIES:
+        assert torch.equal(ours[k], plain[k]), k
+    assert camera.launches == before
+    with pytest.raises(ValueError, match="modalities"):
+        camera.render(*args, **kw, modalities=("rgb", "lidar"))
+    scene, sidx, ego, *rest = args
+    meta = types.SimpleNamespace(pos=ego.pos.to("meta"), heading=ego.heading.to("meta"),
+                                 params=ego.params)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        camera.render(scene, sidx, meta, *rest, **kw)

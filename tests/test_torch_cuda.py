@@ -635,9 +635,10 @@ def test_stamped_image_rollout_equals_unstamped(tracer):
     tracing on (the camera's stages and counters inside the rollout graph
     and the frame graph) equal those captured with it off, bit for bit;
     captured off, no graph holds a stamp. The stamps: one `camera` span in
-    each replay, its row chunks' `camera.ground` and `camera.boxes` inside
-    it, one `camera` span a `step`'s frame; the counters: every pixel of
-    every frame, the live box pairs at most those computed."""
+    each replay, nothing inside it (on the card the frame is one kernel;
+    the plain chain's stages are the CPU's), one `camera` span a `step`'s
+    frame; the counters: every pixel of every frame, the live box pairs at
+    most those computed."""
     from metadrive_ped_torch import MetaDriveEnv
     runs = []
     for on in (False, True):
@@ -662,9 +663,7 @@ def test_stamped_image_rollout_equals_unstamped(tracer):
     in_replay = [i for i in cams if spans[i]["parent"] is not None]
     assert len(in_replay) == 14 and len(cams) == 14 + 3
     assert all(spans[spans[i]["parent"]]["name"] == "replay" for i in in_replay)
-    for i in cams:
-        kids = [s["name"] for s in spans if s["parent"] == i]
-        assert kids and kids == ["camera.ground", "camera.boxes"] * (len(kids) // 2)
+    assert not [s for s in spans if s["parent"] in cams], "the frame is one kernel: no stages"
     c = recs["counters"]
     assert c["camera.pixels"] == 64 * 32 * 32 * 17 and recs["lost"] == 0
     assert 0 < c["camera.boxes_live"] <= c["camera.boxes_computed"]
@@ -776,3 +775,321 @@ def test_npc_lidar_reciprocal_is_ieee(cuda, tmp_path):
     mismatches = torch.zeros(1, dtype=torch.int64, device="cuda")
     assert fn(mismatches.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
     assert int(mismatches) == 0
+
+
+# ---- the camera kernel (ops/camera.py, csrc/camera.cu) ---------------------
+
+def _rgb84(**over):
+    """The pg_rgb84 deployment's config (benchmarks/configs/pg_rgb84.json)."""
+    import json
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "benchmarks", "configs", "pg_rgb84.json")
+    with open(path) as f:
+        return dict(json.load(f)["config"], **over)
+
+
+def _stepped(cfg, steps, seed=0):
+    """An env of ``cfg`` on the card after ``steps`` replayed steps at full
+    throttle (auto-resets among them)."""
+    from metadrive_ped_torch import MetaDriveEnv
+    env = MetaDriveEnv(cfg, device="cuda")
+    act = torch.tensor([0.0, 1.0], device="cuda").expand(env.num_envs, 2).contiguous()
+    env.reset(seed=seed)
+    env.rollout(steps, actions=act, collect=("reward",))
+    return env
+
+
+def _same_frames(args, kw):
+    """Every modality of the kernel's frame is the plain chain's (max abs
+    difference 0.0), in one launch; the plain frame."""
+    from metadrive_ped_torch.ops import camera
+    gaps = chip_smoke.camera_gaps(args, kw)
+    assert gaps == {k: (0.0, 0) for k in camera.MODALITIES}, gaps
+    return camera.render_plain(*args, **kw)
+
+
+def _classes(frame):
+    from metadrive_ped_torch.ops import camera
+    palette = camera._palette(frame["semantic"].device)
+    sem = frame["semantic"].reshape(-1, 1, 3)
+    return set(torch.nonzero((sem == palette).all(-1))[:, 1].tolist())
+
+
+def _two_boxes_ahead(args):
+    """``args`` with slots 0 and 1 of every row active and the same box,
+    8 m ahead of the camera."""
+    ego = args[2]
+    fwd = torch.stack([torch.cos(ego.heading), torch.sin(ego.heading)], -1)
+    pos, heading, active = args[3][0].clone(), args[3][1].clone(), args[3][4].clone()
+    pos[:, 0] = pos[:, 1] = ego.pos + 8.0 * fwd
+    heading[:, 0] = heading[:, 1] = ego.heading
+    active[:, :2] = True
+    length, width = args[3][2].clone(), args[3][3].clone()
+    length[:, 1], width[:, 1] = length[:, 0], width[:, 0]
+    return _with_targets(args, pos=pos, heading=heading, len=length, wid=width, active=active)
+
+
+def _with_targets(args, **fields):
+    """``args`` with target fields replaced (pos, heading, len, wid, active)."""
+    names = ("pos", "heading", "len", "wid", "active")
+    targets = tuple(fields.get(n, t) for n, t in zip(names, args[3]))
+    return (*args[:3], targets, *args[4:])
+
+
+def _random_case(env, seed, width, height, E=32, bodies=24):
+    """`camera.render` arguments on ``env``'s scene and device: seeded
+    random camera poses around its lanes (on and off the road), bodies
+    (sizes, headings, a third inactive, some around the camera; 12 NPC
+    slots, 4 objects of every kind, 8 pedestrians) and a pitch of 0, 4 or
+    8 degrees."""
+    import types
+    g = torch.Generator().manual_seed(seed)
+    scene = env.scene
+    dev = scene.lane_kind.device
+    sidx = torch.randint(0, scene.lane_kind.shape[0], (E,), generator=g, dtype=torch.int32)
+    pos = scene.lane_p0.cpu()[sidx.long(), 0] + torch.randn(E, 2, generator=g) * 6.0
+    ego = types.SimpleNamespace(pos=pos.to(dev), heading=(torch.rand(E, generator=g) * 6.3
+                                                          - 3.15).to(dev),
+                                params=types.SimpleNamespace(
+                                    length=(4 + torch.rand(E, generator=g)).to(dev)))
+    rand = lambda: torch.rand(E, bodies, generator=g)  # noqa: E731
+    targets = (pos[:, None] + torch.randn(E, bodies, 2, generator=g) * 12.0,
+               rand() * 6.3 - 3.15, 1 + 4 * rand(), 0.5 + 2 * rand(), rand() < 0.67)
+    slices = dict(npc=slice(0, 12), obj=slice(12, 16), ped=slice(16, bodies))
+    obj_kind = torch.randint(0, 4, (E, 4), generator=g, dtype=torch.int32)
+    return ((scene, sidx.to(dev), ego, tuple(t.to(dev) for t in targets), slices,
+             obj_kind.to(dev)), dict(width=width, height=height, pitch_deg=4.0 * (seed % 3)))
+
+
+def _segment_distances(args, kw, row):
+    """Distances [P, B] of env row ``row``'s ground points to every segment
+    of its scenario, as the plain chain computes them
+    (ops/camera.py::_segment_distances); inf where the pixel's ground point
+    lies beyond FAR / 2 or its ray does not descend."""
+    from metadrive_ped_torch.ops import camera
+    scene, sidx, ego = args[:3]
+    r = slice(row, row + 1)
+    cam_h = kw.get("cam_height", 1.4)
+    heading = ego.heading[r]
+    dirs = camera.pixel_rays(heading, kw["width"], kw["height"], kw.get("fov_deg", 66.0),
+                             kw.get("pitch_deg", 0.0), cam_h)
+    fwd = torch.stack([torch.cos(heading), torch.sin(heading)], dim=-1)
+    origin = ego.pos[r] + 0.25 * ego.params.length[r][:, None] * fwd
+    t, px, py = camera._ground_points(origin, cam_h, dirs)
+    d = camera._segment_distances(scene, sidx[r], px, py)[0]
+    return torch.where((t[0] < camera.FAR / 2)[:, None], d, float("inf"))
+
+
+@pytest.fixture(scope="module")
+def rgb84_small():
+    """The pg_rgb84 `small` state (64 envs) after 24 steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    return chip_smoke.camera_args(_stepped(_rgb84(num_envs=64), 24))
+
+
+def test_camera_kernel_matches_plain_on_the_small_state(rgb84_small):
+    """Bit-equal in all four modalities; one modality asked for is that
+    modality's frame, and the others are not written."""
+    from metadrive_ped_torch.ops import camera
+    args, kw = rgb84_small
+    ref = _same_frames(args, kw)
+    assert {camera.SEM_SKY, camera.SEM_ROAD, camera.SEM_TERRAIN, camera.SEM_CAR} <= _classes(ref)
+    for m in camera.MODALITIES:
+        one = camera.render(*args, **kw, modalities=(m,))
+        assert list(one) == [m] and torch.equal(one[m], ref[m]), m
+
+
+def test_camera_kernel_matches_plain_at_1024_envs(cuda):
+    """The benchmark's width (1024 envs, 16 maps), after 16 steps."""
+    args, kw = chip_smoke.camera_args(_stepped(_rgb84(), 16))
+    _same_frames(args, kw)
+
+
+def test_camera_kernel_matches_plain_on_circular_lanes(cuda):
+    """Maps of curves, an intersection and a roundabout: circular lanes
+    decide much of the road (atan2f and the phase wraps)."""
+    cfg = _rgb84(num_envs=64, map="CXOC", num_scenarios=4, traffic_density=0.1)
+    env = _stepped(cfg, 20)
+    assert int((env.scene.lane_kind == 1).sum()) > 100
+    _same_frames(*chip_smoke.camera_args(env))
+
+
+def test_camera_kernel_matches_plain_with_a_row_without_bodies(rgb84_small):
+    """Row 0 with no active body, row 1 with every slot active."""
+    args, kw = rgb84_small
+    active = args[3][4].clone()
+    active[0] = False
+    active[1] = True
+    _same_frames(_with_targets(args, active=active), kw)
+
+
+def test_camera_kernel_keeps_the_first_of_two_equal_boxes(rgb84_small):
+    """Slots 0 and 1 of every row the same box 8 m ahead of the camera:
+    both at one distance, the first slot's instance colour shows, in the
+    plain chain and the kernel."""
+    from metadrive_ped_torch.ops import camera
+    args, kw = rgb84_small
+    ref = _same_frames(_two_boxes_ahead(args), kw)
+    centre = ref["instance"][:, kw["height"] // 2 + 2, kw["width"] // 2]
+    shows = lambda k: (centre - _colour(k, "cuda")).abs().amax(-1) < 1e-6  # noqa: E731
+    assert int(shows(0).sum()) >= 0.9 * len(centre) and not bool(shows(1).any())
+    assert camera.SEM_CAR in _classes(ref)
+
+
+def test_camera_kernel_matches_plain_on_line_thresholds(rgb84_small):
+    """Each valid segment's half width set to the distance of row 0's
+    nearest ground pixel (as the plain chain computes it), so that pixel
+    lies exactly on the segment's threshold."""
+    import dataclasses
+    args, kw = rgb84_small
+    scene, sidx = args[0], args[1]
+    d = _segment_distances(args, kw, row=0)        # [P, B]
+    s = int(sidx[0])
+    hw = scene.seg_halfwidth.clone()
+    valid = scene.seg_valid[s]
+    pix = (d - hw[s]).abs().argmin(0)                                 # [B]
+    on = d.gather(0, pix[None])[0]
+    hw[s] = torch.where(valid & torch.isfinite(on), on, hw[s])
+    case = (dataclasses.replace(scene, seg_halfwidth=hw), *args[1:])
+    ref = _same_frames(case, kw)
+    assert int(valid.sum()) > 20 and 2 in _classes(ref)
+
+
+def test_camera_kernel_walks_tables_larger_than_its_tiles(rgb84_small):
+    """Segments, lanes and bodies repeated past the kernel's shared-memory
+    tiles (512 segments, 256 lanes, 128 bodies): the same frame, the first
+    copy of a body winning its tie."""
+    import dataclasses
+    args, kw = rgb84_small
+    scene = args[0]
+    rep = {f.name: torch.cat([getattr(scene, f.name)] * 3, dim=1)
+           for f in dataclasses.fields(scene)
+           if f.name.startswith(("seg_", "lane_")) and getattr(scene, f.name).dim() >= 2
+           and getattr(scene, f.name).shape[1] in (scene.seg_type.shape[1],
+                                                    scene.lane_kind.shape[1])}
+    big = dataclasses.replace(scene, **rep)
+    assert big.seg_type.shape[1] > 512 and big.lane_kind.shape[1] > 256
+    _same_frames((big, *args[1:]), kw)
+    T = args[3][0].shape[1]
+    copies = -(-130 // T) + 1
+    targets = tuple(torch.cat([t] * copies, dim=1) for t in args[3])
+    _same_frames((*args[:3], targets, *args[4:]), kw)
+
+
+def _colour(k, device):
+    """The instance colour of target slot ``k`` (ops/camera.py)."""
+    return torch.tensor([(k * 37 + 13) % 255, (k * 91 + 71) % 255, (k * 53 + 29) % 255],
+                        device=device) / 255.0
+
+
+@pytest.mark.parametrize("boxes_ahead", [False, True])
+def test_the_camera_counts_the_box_pairs_its_kernel_tests(tracer, rgb84_small, boxes_ahead):
+    """`camera.boxes_computed` is the kernel's own count of its box tests:
+    every live pixel against every active slot of its row, and for each
+    pixel that shows a body the slots up to the one it shows (the second
+    pass, over the active slots in slot order); `camera.boxes_live` is the
+    pixels times the active slots. On the small state, and with a box
+    ahead of every camera (`_two_boxes_ahead`)."""
+    from metadrive_ped_torch.ops import camera
+    args, kw = rgb84_small
+    if boxes_ahead:
+        args = _two_boxes_ahead(args)
+    active = args[3][4]
+    E, T = active.shape
+    P = kw["width"] * kw["height"]
+    ref = camera.render_plain(*args, **kw)
+    tracer.enable()
+    tracer.clear()
+    camera.render(*args, **kw)
+    counters = tracer.records()["counters"]
+    tracer.disable()
+    colours = torch.stack([_colour(k, active.device) for k in range(T)])     # [T, 3]
+    shown = ((ref["instance"].reshape(E, P, 1, 3) - colours).abs().amax(-1) < 1e-6)
+    shows = shown.any(-1)                                                    # [E, P]
+    slot = shown.int().argmax(-1)                                            # the first
+    rank = active.long().cumsum(-1).gather(1, slot)                         # [E, P]
+    assert int(shows.sum()) > (3000 if boxes_ahead else 100)
+    assert bool(active.gather(1, slot)[shows].all())
+    assert counters["camera.boxes_live"] == P * int(active.sum())
+    assert counters["camera.boxes_computed"] == P * int(active.sum()) + int(rank[shows].sum())
+
+
+def test_camera_kernel_matches_plain_on_random_poses(cuda):
+    """Seeded random camera poses (on and off the road), bodies (sizes,
+    headings, a third inactive, some overlapping the camera) and pitches,
+    at 84x84 and at a ragged 100x37."""
+    env = _stepped(_rgb84(num_envs=48), 2)
+    for seed, (w, h) in enumerate(((84, 84), (100, 37))):
+        args, kw = _random_case(env, seed, w, h)
+        _same_frames(args, kw)
+
+
+def test_camera_kernel_rejects_what_it_cannot_take(rgb84_small):
+    from metadrive_ped_torch.ops import camera
+    args, kw = rgb84_small
+    import dataclasses
+    scene, sidx, ego, targets, slices, obj_kind = args
+    for case in ((scene, sidx.long(), ego, targets, slices, obj_kind),
+                 (scene, sidx, ego, targets, slices, obj_kind.long()),
+                 (scene, sidx, ego, targets, slices, obj_kind[:, :0]),
+                 (scene, sidx, ego, (targets[0].double(), *targets[1:]), slices, obj_kind),
+                 (scene, sidx, ego, (*targets[:4], targets[4].float()), slices, obj_kind),
+                 (scene, sidx, ego, (*targets[:2], targets[2].cpu(), *targets[3:]), slices,
+                  obj_kind),
+                 (dataclasses.replace(scene, seg_valid=scene.seg_valid.float()), sidx, ego,
+                  targets, slices, obj_kind),
+                 (scene, sidx, ego, targets, dict(slices, ped=slice(0, None, 2)), obj_kind)):
+        with pytest.raises(ValueError):
+            camera.render(*case, **kw)
+    with pytest.raises(ValueError):
+        camera.render(*args, **dict(kw, width=0))
+    with pytest.raises(ValueError):
+        camera.render(*args, **kw, modalities=("lidar",))
+
+
+def test_camera_launches_once_a_replayed_step_and_replay_equals_eager(cuda):
+    """A replayed image rollout of 8 steps equals the eager one bit for
+    bit, and each step launches the camera kernel once, replays included."""
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.ops import camera
+    env = MetaDriveEnv(IMAGE_CFG, device="cuda")
+    act = torch.tensor([[0.0, 1.0]] * 64, device="cuda")
+    runs = []
+    for roll in (env._rollout_eager, env.rollout):
+        env.reset(seed=0)
+        camera.launches = 0
+        outs, _ = roll(8, actions=act, collect=IMAGE_COLLECT)
+        runs.append((_clone(outs), camera.launches))
+    assert _equal_trees(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1] == 8
+    assert env._graphs.replays == 8
+
+
+def test_a_traced_image_rollout_holds_one_camera_kernel_a_replay(tracer):
+    """The card's counterpart of test_torch_trace.py's camera-stage test:
+    each replay of a traced image rollout holds one `camera` span with no
+    stages inside (the frame is one kernel), one camera launch, and the
+    counters count every pixel and the live box pairs, at most the pairs
+    the kernel's box tests computed."""
+    from metadrive_ped_torch import MetaDriveEnv
+    from metadrive_ped_torch.ops import camera
+    env = MetaDriveEnv(IMAGE_CFG, device="cuda")
+    act = torch.tensor([[0.0, 1.0]] * 64, device="cuda")
+    env.reset(seed=0)
+    tracer.enable()
+    env.rollout(2, actions=act, collect=("obs", "image"))       # the capture
+    tracer.clear()
+    camera.launches = 0
+    env.rollout(5, actions=act, collect=("obs", "image"))
+    recs = tracer.records()
+    tracer.disable()
+    spans = recs["spans"]
+    replays_ = [i for i, s in enumerate(spans) if s["name"] == "replay"]
+    cams = [i for i, s in enumerate(spans) if s["name"] == "camera"]
+    assert len(replays_) == len(cams) == 5 and camera.launches == 5
+    assert all(spans[i]["parent"] in replays_ for i in cams)
+    assert not [s for s in spans if s["parent"] in cams]
+    c = recs["counters"]
+    assert c["camera.pixels"] == 64 * 32 * 32 * 5
+    assert 0 < c["camera.boxes_live"] <= c["camera.boxes_computed"]

@@ -426,9 +426,10 @@ def profile_mixed(card, args):
 
 def profile_image(card, args):
     """One JSON line for chip_smoke.py's image_obs phase, its step through
-    `step` (the camera frame and its stack live there) with the camera
-    split into its stages over the chunks of env rows that `camera.render`
-    runs, and one for its top_down phase with the BEV split into the
+    `step` (the camera frame and its stack live there) with the plain
+    chain of the camera split into its stages over the chunks of env rows
+    that `camera.render_plain` runs, beside the kernel's frame, and one for
+    its top_down phase with the BEV split into the
     texture samples, the stamps and the stack ring."""
     import torch
 
@@ -459,6 +460,7 @@ def profile_image(card, args):
         return camera.pixel_rays(st.ego.heading[c], w, h, cam["fov"], cam["pitch"],
                                  cam["height"])
     dirs = [rays(c) for c in chunks]
+    cam_args = cs.camera_args(env)
     stages = {
         f"camera: pixel_rays ({len(chunks)} chunks of {rows} rows)": lambda: [
             rays(c) for c in chunks],
@@ -469,7 +471,10 @@ def profile_image(card, args):
         f"camera: box hits ([rows, {P}, {targets[0].shape[1]} boxes] slabs)": lambda: [
             camera._box_hits(origin[c], cam["height"], d, *(x[c] for x in targets[:4]),
                              t_hgt[c], targets[4][c]) for c, d in zip(chunks, dirs)],
-        "camera (whole render, all modalities)": lambda: env._render_frame(st),
+        "camera (the sensor's modality: one launch of csrc/camera.cu)":
+            lambda: env._render_frame(st),
+        "camera, plain chain (render_plain, all modalities)": lambda: camera.render_plain(
+            *cam_args[0], **cam_args[1]),
         "camera frame, replayed (its graph, core/graph.py)": env._graphs._frame.replay,
         "image obs (render + frame stack)": lambda: env._image_obs(env._last_obs),
     }
